@@ -1,0 +1,26 @@
+"""Architecture registry (port of ``src/repro/configs/__init__.py``).
+
+Lists only the architectures the port serves; the others join as their
+slices land.
+"""
+from __future__ import annotations
+
+import importlib
+from typing import Dict, List
+
+from repro_torch.configs.base import MLAConfig, ModelConfig, SSMConfig  # noqa: F401
+
+_ARCH_MODULES: Dict[str, str] = {
+    "qwen2-1.5b": "qwen2_1_5b",
+}
+
+
+def list_archs() -> List[str]:
+    return list(_ARCH_MODULES)
+
+
+def get_config(arch: str) -> ModelConfig:
+    if arch not in _ARCH_MODULES:
+        raise KeyError(f"unknown arch {arch!r}; the port serves: {list_archs()}")
+    mod = importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[arch]}")
+    return mod.CONFIG

@@ -1,0 +1,120 @@
+"""Build and load the port's CUDA C++ kernels (no counterpart in ``src/repro/``).
+
+Each ``.cu`` source under ``src/repro_torch/csrc/`` is compiled on first use by
+``nvcc`` for ``sm_90a`` into a shared library with a plain C interface and
+loaded with :mod:`ctypes`.  Libraries land in ``<repo>/build/repro_torch_kernels/``
+(resolved from this file, not from the working directory), named by a hash
+of the source and the shared headers so an edited kernel is rebuilt.  A
+failed build raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, List, Sequence
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"
+BUILD_DIR = BUILD_ROOT / "repro_torch_kernels"
+TRITON_HOME = BUILD_ROOT / "triton"      # Triton's cache, kept in the checkout
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "-lineinfo")
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on the "
+                       "machine with the card (PATH or CUDA_HOME)")
+
+
+def library_path(name: str) -> Path:
+    """Build path named by a hash of the source and the shared headers."""
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def _start(name: str):
+    """Start ``nvcc`` for one source unless its library is already built;
+    returns (library path, process or None)."""
+    out = library_path(name)
+    if out.exists():
+        return out, None
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    log = out.with_suffix(".log").open("w")
+    proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", str(tmp),
+                             str(CSRC / f"{name}.cu")],
+                            stdout=log, stderr=subprocess.STDOUT)
+    log.close()
+    return out, (proc, tmp)
+
+
+def _finish(name: str, out: Path, pending) -> None:
+    if pending is None:
+        return
+    proc, tmp = pending
+    rc = proc.wait()
+    if rc != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu (rc={rc}):\n"
+                           + out.with_suffix(".log").read_text())
+    os.replace(tmp, out)
+
+
+def build(names: Sequence[str]) -> List[Path]:
+    """Compile every named source in parallel (one ``nvcc`` each, all
+    started together); returns the library paths.  Raises on any failure."""
+    started = [(n, *_start(n)) for n in names]
+    errors = []
+    for n, out, pending in started:      # wait for every nvcc, then raise
+        try:
+            _finish(n, out, pending)
+        except RuntimeError as e:
+            errors.append(e)
+    if errors:
+        raise errors[0]
+    return [out for _, out, _ in started]
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, building it if needed.
+    Every library exports ``repro_error_string(int) -> const char*``."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            [path] = build([name])
+            lib = ctypes.CDLL(str(path))
+            lib.repro_error_string.argtypes = [ctypes.c_int]
+            lib.repro_error_string.restype = ctypes.c_char_p
+            _libs[name] = lib
+        return lib
+
+
+def build_log(name: str) -> str:
+    """``nvcc -Xptxas=-v`` output of the last build (registers, shared
+    memory, spills per kernel); empty when the library was not built here."""
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise on a nonzero ``cudaError_t`` returned by a C launcher (the
+    launchers return ``cudaGetLastError()`` right after the launch)."""
+    if err != 0:
+        msg = lib.repro_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA launch failed: {msg} ({err})")

@@ -1,0 +1,45 @@
+"""Plain PyTorch paged decode attention (port of
+``src/repro/kernels/flash_decode/ref.py::paged_flash_decode_ref``).
+
+The specification the CUDA kernel is held to, and what the op runs for
+tensors on the CPU.  It follows the kernel's contract exactly, including a
+lane with ``kv_len = 0`` (nothing to attend) writing zeros, as the TPU
+kernel's ``acc / max(l, 1e-30)`` flush does.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+NEG_INF = -2.0 ** 30
+
+
+def paged_flash_decode_ref(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
+                           ptab: torch.Tensor, kv_len: torch.Tensor,
+                           window: Optional[int] = None) -> torch.Tensor:
+    """q: (B, H, D); kp, vp: (P, page, Hkv, D); ptab: (B, n_ptab) logical
+    block → physical page; kv_len: (B,).  Returns (B, H, D) in q's dtype;
+    all arithmetic in f32."""
+    P, page, Hkv, D = kp.shape
+    B, H, _ = q.shape
+    G = H // Hkv
+    S = ptab.shape[1] * page
+    idx = ptab.long()
+    k = kp[idx].reshape(B, S, Hkv, D).float()              # gather pages
+    v = vp[idx].reshape(B, S, Hkv, D).float()
+    qg = q.float().reshape(B, Hkv, G, D)
+    s = torch.einsum("bhgd,bshd->bhgs", qg, k) * (1.0 / math.sqrt(D))
+    kpos = torch.arange(S, device=q.device)[None, :]
+    kl = kv_len.long()[:, None]
+    valid = kpos < kl
+    if window is not None:
+        valid &= kpos >= (kl - window).clamp(min=0)
+    valid = valid[:, None, None, :]
+    s = s.masked_fill(~valid, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m) * valid
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bhgs,bshd->bhgd", p, v) / l.clamp(min=1e-30)
+    return o.reshape(B, H, D).to(q.dtype)

@@ -1,0 +1,211 @@
+"""Transformer layers, dense paged subset (port of ``src/repro/models/layers.py``).
+
+Weights keep the JAX package's ``(d_in, d_out)`` layout and are applied as
+``x @ w``, so carrying JAX weights over is a plain copy.  On the card the
+projection, bias and embedding tensors are stored in the working dtype once,
+at load, instead of being cast on every call as the JAX ``linear`` does —
+the numbers are the same.  Norm scales stay f32 (the norm computes in f32).
+
+The projections, the SwiGLU products and the tied head stay ``torch.matmul``:
+they are plain products that the JAX package leaves to XLA outside any
+Pallas kernel.  RMSNorm, paged decode attention and prefill attention go
+through the port's kernel ops (Triton / CUDA on the card, their plain
+versions on the CPU).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_decode import ops as fd_ops
+from repro_torch.kernels.rmsnorm import ops as rms_ops
+
+NEG_INF = -2.0 ** 30  # large-negative that survives bf16
+
+
+# --------------------------------------------------------------------------- #
+# norms / positional
+# --------------------------------------------------------------------------- #
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """``x·rsqrt(mean(x²)+eps)·(1+scale)`` computed in f32, through the
+    RMSNorm op (the JAX model inlines the same formula in jnp)."""
+    return rms_ops.rmsnorm(x, scale, eps)
+
+
+def rope_freqs(d_head: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, d_head, 2, dtype=torch.float32,
+                                         device=device) / d_head))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (B, S, H, D); positions: (B, S) int.  Split halves, f32 math."""
+    d = x.shape[-1]
+    inv = rope_freqs(d, theta, x.device)                          # (D/2,)
+    ang = positions.float()[..., None] * inv                      # (B, S, D/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    if cap is None:
+        return x
+    return cap * torch.tanh(x / cap)
+
+
+def linear(w: torch.Tensor, b: Optional[torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    y = x @ w
+    if b is not None:
+        y = y + b
+    return y
+
+
+# --------------------------------------------------------------------------- #
+# attention
+# --------------------------------------------------------------------------- #
+def _attn_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window: Optional[int],
+               causal: bool = True) -> torch.Tensor:
+    """(B, 1, Sq, Sk) boolean mask. q_pos: (B, Sq), k_pos: (B, Sk)."""
+    diff = q_pos[:, :, None] - k_pos[:, None, :]
+    mask = (diff >= 0) if causal else torch.ones_like(diff, dtype=torch.bool)
+    if window is not None:
+        mask = mask & (diff < window)
+    return mask[:, None, :, :]
+
+
+def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
+         logit_cap: Optional[float] = None,
+         scale: Optional[float] = None) -> torch.Tensor:
+    """Plain grouped-query attention (GQA by repeating K/V), scores and
+    softmax in f32.  q: (B, Sq, H, D); k, v: (B, Sk, Hkv, D); mask:
+    (B, 1, Sq, Sk).  The CPU-only reference path; the serving path runs the
+    kernel ops instead."""
+    D = q.shape[-1]
+    rep = q.shape[2] // k.shape[2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    if rep > 1:
+        k = k.repeat_interleave(rep, dim=2)
+        v = v.repeat_interleave(rep, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    s = softcap(s, logit_cap)
+    s = s.masked_fill(~mask, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), v)
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, d: int, eps: float, device=None):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.zeros(d, dtype=torch.float32,
+                                              device=device),
+                                  requires_grad=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return rmsnorm(x, self.scale, self.eps)
+
+
+def _weight(shape, dtype, device) -> nn.Parameter:
+    return nn.Parameter(torch.zeros(shape, dtype=dtype, device=device),
+                        requires_grad=False)
+
+
+class Attention(nn.Module):
+    """GQA attention weights (``wq``/``wk``/``wv``/``wo`` in (d_in, d_out),
+    optional ``bq``/``bk``/``bv``) against the paged KV pool."""
+
+    def __init__(self, cfg: ModelConfig, dtype: torch.dtype, device=None):
+        super().__init__()
+        self.cfg = cfg
+        d, h, hk, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+        self.wq = _weight((d, h * dh), dtype, device)
+        self.wk = _weight((d, hk * dh), dtype, device)
+        self.wv = _weight((d, hk * dh), dtype, device)
+        self.wo = _weight((h * dh, d), dtype, device)
+        if cfg.qkv_bias:
+            self.bq = _weight((h * dh,), dtype, device)
+            self.bk = _weight((hk * dh,), dtype, device)
+            self.bv = _weight((hk * dh,), dtype, device)
+        else:
+            self.bq = self.bk = self.bv = None
+
+    def forward(self, x, pos2, window, kp, vp, ptab, lens, widx):
+        return paged_attention_fwd(self, self.cfg, x, pos2, window, kp, vp,
+                                   ptab, lens, widx)
+
+
+def paged_attention_fwd(p: Attention, cfg: ModelConfig, x: torch.Tensor,
+                        pos2: torch.Tensor, window: Optional[int],
+                        kp: torch.Tensor, vp: torch.Tensor, ptab: torch.Tensor,
+                        lens: torch.Tensor, widx: torch.Tensor) -> torch.Tensor:
+    """GQA attention against one layer's paged KV pool.
+
+    x: (B, C, d) token chunk at absolute positions ``pos2`` (B, C);
+    kp/vp: (P, page, Hkv, D) physical page pools of this layer; ptab:
+    (B, n_ptab) int32 logical block → physical page; lens: (B,) int32 valid
+    kv length after this chunk's writes; widx: (B·C,) flat pool row
+    (page·page_size + offset) each token writes to, inactive lanes already
+    diverted into the trash page by the caller.
+
+    Unlike the JAX function, which returns new pools, the port writes this
+    chunk's K/V into ``kp``/``vp`` in place (``index_copy_`` into the
+    ``(P·page, Hkv, D)`` view) and returns only the attention output.
+    ``C == 1`` runs the paged decode kernel; ``C > 1`` gathers the mapped
+    pages (``kp[ptab]``) and runs the flash-attention kernel with per-row
+    ``kv_len = lens``.
+    """
+    B, C, _ = x.shape
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    P, page = kp.shape[0], kp.shape[1]
+
+    q = linear(p.wq, p.bq, x).reshape(B, C, H, D)
+    k = linear(p.wk, p.bk, x).reshape(B, C, Hkv, D)
+    v = linear(p.wv, p.bv, x).reshape(B, C, Hkv, D)
+    q = apply_rope(q, pos2, cfg.rope_theta)
+    k = apply_rope(k, pos2, cfg.rope_theta)
+
+    kp.view(P * page, Hkv, D).index_copy_(0, widx, k.reshape(B * C, Hkv, D))
+    vp.view(P * page, Hkv, D).index_copy_(0, widx, v.reshape(B * C, Hkv, D))
+
+    if C == 1:
+        if cfg.attn_logit_softcap is not None:
+            raise NotImplementedError("paged decode with an attention logit "
+                                      "softcap comes with the gemma2 slice")
+        out = fd_ops.paged_flash_decode_head_slice(
+            q[:, 0], kp, vp, ptab, lens, 0, Hkv, window=window)[:, None]
+    else:
+        S = ptab.shape[1] * page
+        K = kp[ptab].reshape(B, S, Hkv, D)            # gather mapped pages
+        V = vp[ptab].reshape(B, S, Hkv, D)
+        out = fa_ops.flash_attention(q, K, V, causal=True, window=window,
+                                     softcap=cfg.attn_logit_softcap,
+                                     kv_len=lens)
+    return out.reshape(B, C, H * D) @ p.wo
+
+
+# --------------------------------------------------------------------------- #
+# feed-forward
+# --------------------------------------------------------------------------- #
+class SwiGLU(nn.Module):
+    def __init__(self, d: int, d_ff: int, dtype: torch.dtype, device=None):
+        super().__init__()
+        self.w_gate = _weight((d, d_ff), dtype, device)
+        self.w_up = _weight((d, d_ff), dtype, device)
+        self.w_down = _weight((d_ff, d), dtype, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return swiglu(self, x)
+
+
+def swiglu(p: SwiGLU, x: torch.Tensor) -> torch.Tensor:
+    g = F.silu(x @ p.w_gate)
+    u = x @ p.w_up
+    return (g * u) @ p.w_down

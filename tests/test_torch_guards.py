@@ -1,0 +1,188 @@
+"""Guards of the PyTorch port: it never imports JAX or the JAX package,
+its entry points never fall back to the CPU when no card is present, and
+its kernel modules import on a host without ``triton`` or ``nvcc``."""
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.core.plan import Plan, ReplicaGroup
+from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_decode import kernel as fd_kernel
+from repro_torch.kernels.flash_decode import ops as fd_ops
+from repro_torch.kernels.rmsnorm import kernel as rms_kernel
+from repro_torch.kernels.rmsnorm import ops as rms_ops
+from repro_torch.models import lm
+from repro_torch.serving.backend import TorchBackend, make_torch_backend
+from repro_torch.serving.engine import Engine
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "repro")
+
+
+def _port_files():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def _forbidden_imports(path: Path):
+    bad = []
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        bad += [n for n in names if n.split(".")[0] in FORBIDDEN]
+    return bad
+
+
+def test_port_never_imports_jax_or_the_jax_package():
+    files = _port_files()
+    assert len(files) > 20 and (ROOT / "chip_smoke.py").exists()
+    offenders = {str(p.relative_to(ROOT)): b for p in files
+                 if (b := _forbidden_imports(p))}
+    assert offenders == {}
+
+
+def test_scan_catches_forbidden_imports_but_not_repro_torch(tmp_path):
+    probe = tmp_path / "probe.py"
+    probe.write_text("import repro_torch.models\nfrom repro_torch import device\n")
+    assert _forbidden_imports(probe) == []
+    probe.write_text("import jax.numpy as jnp\nfrom repro.models import lm\n"
+                     "from jax import lax\nimport repro\n")
+    assert _forbidden_imports(probe) == ["jax.numpy", "repro.models", "jax", "repro"]
+
+
+def test_importing_the_port_loads_neither_jax_nor_repro():
+    code = ("import sys, repro_torch, repro_torch.serving.backend, "
+            "repro_torch.launch.serve\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'repro', 'triton'))\n"
+            "assert not bad, bad\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"},
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def _no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; these check the no-card path")
+
+
+def test_entry_points_raise_without_a_card():
+    _no_card()
+    cfg = get_config("qwen2-1.5b").reduced()
+    model = lm.init_params(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Engine(cfg, model)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_torch_backend()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm.init_params(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm.init_paged_cache(cfg, 4, 16)
+
+
+def test_kernel_launchers_refuse_cpu_tensors():
+    """The CUDA/Triton launchers never compute on the host: given tensors
+    that are not on the card they raise before building anything."""
+    q = torch.zeros(2, 4, 16)
+    kp = torch.zeros(5, 4, 2, 16)
+    pt = torch.ones(2, 2, dtype=torch.int32)
+    kl = torch.ones(2, dtype=torch.int32)
+    before = (rms_kernel.launches, fd_kernel.launches, fa_kernel.launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        rms_kernel.rmsnorm(q, torch.zeros(16))
+    with pytest.raises(ValueError, match="CUDA"):
+        fd_kernel.paged_flash_decode(q, kp, kp, pt, kl)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa_kernel.flash_attention(q[:, None], kp[:2], kp[:2])
+    assert (rms_kernel.launches, fd_kernel.launches, fa_kernel.launches) == before
+    assert rms_kernel._jitted is None and fd_kernel._fn is None and fa_kernel._fn is None
+
+
+def test_ops_route_only_cpu_and_cuda():
+    """Ops send CUDA tensors to the kernel and CPU tensors to the plain
+    version; any other device raises instead of computing somewhere."""
+    meta = torch.device("meta")
+    q = torch.zeros(2, 4, 16, device=meta)
+    kp = torch.zeros(5, 4, 2, 16, device=meta)
+    pt = torch.ones(2, 2, dtype=torch.int32, device=meta)
+    with pytest.raises(ValueError, match="unsupported device"):
+        rms_ops.rmsnorm(q, torch.zeros(16, device=meta))
+    with pytest.raises(ValueError, match="unsupported device"):
+        fd_ops.paged_flash_decode(q, kp, kp, pt, pt[:, 0])
+    with pytest.raises(ValueError, match="unsupported device"):
+        fa_ops.flash_attention(q[:, None], kp[:2], kp[:2])
+
+
+def test_unported_paths_raise_not_implemented():
+    cfg = get_config("qwen2-1.5b").reduced()
+    model = lm.init_params(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="contiguous"):
+        Engine(cfg, model, paged=False, device="cpu")
+    eng = Engine(cfg, model, n_slots=1, max_seq_len=32, device="cpu")
+    with pytest.raises(NotImplementedError, match="migration"):
+        eng.export_slot(0, with_state=True)
+    backend = TorchBackend(cfg, model, device="cpu")
+    with pytest.raises(NotImplementedError, match="faults"):
+        backend.pool.fail(eng)
+    with pytest.raises(NotImplementedError, match="sharded"):
+        backend.apply_plan(Plan((ReplicaGroup("m", "H100-80G", 1, 2, 1, pp=2),)),
+                           None)
+    assert backend.failure_count == 0
+
+
+def test_cuda_build_is_keyed_by_source_and_headers(tmp_path, monkeypatch):
+    """Libraries are named by a hash of the .cu and the shared headers, under
+    the checkout's build directory, so an edited kernel is rebuilt."""
+    assert build.BUILD_DIR == ROOT / "build" / "repro_torch_kernels"
+    assert build.TRITON_HOME.parent == ROOT / "build"
+    for name in ("paged_flash_decode", "flash_attention"):
+        assert (build.CSRC / f"{name}.cu").exists()
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text("// kernel")
+    (csrc / "common.cuh").write_text("// v1")
+    monkeypatch.setattr(build, "CSRC", csrc)
+    first = build.library_path("k")
+    assert first == build.library_path("k") and first.parent == build.BUILD_DIR
+    (csrc / "common.cuh").write_text("// v2")
+    assert build.library_path("k") != first
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "none"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.build(["k"])
+
+
+def test_decode_split_plan_fills_the_card():
+    # 16 (lane, KV head) pairs over 128 pages on 132 SMs: 4 pages per split
+    assert fd_kernel.split_plan(16, 128, 132) == (4, 32)
+    assert fd_kernel.split_plan(16, 3, 132) == (1, 3)
+    assert fd_kernel.split_plan(1024, 128, 132) == (128, 1)
+
+
+def test_kernel_modules_import_without_triton_or_nvcc(tmp_path):
+    """``triton`` is blocked and no ``nvcc`` is reachable in the child."""
+    code = ("import sys\n"
+            "sys.modules['triton'] = None\n"
+            "from repro_torch.kernels.rmsnorm import ops, kernel\n"
+            "from repro_torch.kernels.flash_decode import ops, kernel\n"
+            "from repro_torch.kernels.flash_attention import ops, kernel\n"
+            "import repro_torch.models.lm\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": str(tmp_path),
+                              "CUDA_HOME": str(tmp_path / "no-cuda")},
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
