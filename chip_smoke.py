@@ -1,22 +1,32 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch port: ``python3 chip_smoke.py`` from the
 repo root on a machine with one CUDA card (an H100; the kernels target
-sm_90a).
+sm_90a).  ``--only kernels`` stops after phase 3.
 
 Phases, each printing its own lines; any failure raises and exits non-zero:
   1. device: CUDA present, card name and power limit (nvidia-smi);
-  2. build: the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, in
-     parallel) and the Triton RMSNorm;
-  3. each kernel against its plain PyTorch version at the main path's
+  2. build: the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
+     source, in parallel; ptxas registers, shared memory and spills) and
+     the Triton RMSNorm;
+  3. each kernel against its plain PyTorch version at the main paths'
      full-width shapes (bf16 to 2e-2, f32 to 2e-5), with the kernel's, the
      plain version's and one PyTorch library call's times (CUDA events, L2
      cold for the attention kernels) and the kernel's bound;
-  4. the main path at full width: qwen2-1.5b (28 layers, bf16, seeded random
-     weights) served through ``TorchBackend`` by 2 replicas × 8 slots,
-     with a shared-prefix wave, a drain resize to half the batch, and the
-     kernels' launch counters checked against the dispatches;
+  4. the paths at full width with seeded random weights, each with the
+     kernels' launch counters zeroed just before it and checked against its
+     dispatches just after:
+     4.  qwen2-1.5b (28 layers, bf16) on the paged pool through
+         ``TorchBackend``, 2 replicas × 8 slots, with a shared-prefix wave
+         and a drain resize to half the batch;
+     4b. mamba2-1.3b (48 layers, bf16) on the contiguous state cache through
+         ``TorchBackend``, 2 replicas × 8 slots, 16 requests;
+     4c. qwen2-1.5b with ``paged=False``, one engine × 8 slots;
+     4d. a ``migrate`` resize with requests in flight: paged → paged and
+         contiguous → paged qwen2-1.5b, contiguous → contiguous mamba2-1.3b,
+         tokens held to the same requests served undisturbed;
   5. the port on the card (bf16, kernels) against the port on the CPU (f32,
-     plain versions) for one prefill chunk and 8 decode steps, 2 layers;
+     plain versions) for one prefill chunk and 8 decode steps, 2 layers at
+     full width, for qwen2-1.5b and mamba2-1.3b;
   6. the kernels' JSON line, the card line, and the final JSON line.
 It imports nothing of JAX or the JAX package.
 """
@@ -24,6 +34,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import re
 import subprocess
 import sys
@@ -34,6 +45,7 @@ ROOT = Path(__file__).resolve().parent
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3, bytes/s (NVIDIA data sheet)
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, per type
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+SOURCES = ("paged_flash_decode", "flash_attention", "ssd_scan")
 
 
 def need(cond: bool, msg: str) -> None:
@@ -57,11 +69,13 @@ def ptxas_summary(log: str):
         if m:
             mangled = m.group(1)
             base = re.search(r"(decode_split_kernel|decode_combine_kernel|"
-                             r"flash_attention_kernel)", mangled)
+                             r"flash_attention_kernel|ssd_scan_kernel)", mangled)
             dtype = "bf16" if "nv_bfloat16" in mangled else "f32"
-            d = re.search(r"Li(\d+)E", mangled)
+            ints = ", ".join(re.findall(r"Li(\d+)E", mangled))
+            contig = (", contiguous" if re.search(r"Lb1E", mangled) else
+                      ", paged" if re.search(r"Lb0E", mangled) else "")
             name = (base.group(1) if base else mangled) + f"<{dtype}" + (
-                f", D={d.group(1)}>" if d else ">")
+                f", {ints}" if ints else "") + f"{contig}>"
         elif "spill stores" in line:
             spills = line.strip()
         elif "Used" in line and "registers" in line:
@@ -114,6 +128,7 @@ def check_kernels(torch):
     from repro_torch.kernels.flash_attention import kernel as fa_k, ref as fa_r
     from repro_torch.kernels.flash_decode import kernel as fd_k, ref as fd_r
     from repro_torch.kernels.rmsnorm import kernel as rms_k, ref as rms_r
+    from repro_torch.kernels.ssd_scan import kernel as ssd_k, ref as ssd_r
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1234)
@@ -175,6 +190,43 @@ def check_kernels(torch):
           f"{ms:.4f} ms (plain {plain:.4f} ms, SDPA on pre-gathered K/V "
           f"{lib:.4f} ms, bound {b_ms:.4f} ms by {b_by}); blocks "
           f"{B * Hkv}×{fd_k.split_plan(B * Hkv, NPT, torch.cuda.get_device_properties(dev).multi_processor_count)}")
+
+    # --- contiguous flash-decode ---------------------------------------------
+    errs = []
+    for dt in ("bfloat16", "float32"):
+        q = randn((B, H, D), dt)
+        k, v = randn((B, S, Hkv, D), dt), randn((B, S, Hkv, D), dt)
+        kl = torch.tensor(kv_spread, device=dev, dtype=torch.int32)
+        e = max_err(torch, fd_k.flash_decode(q, k, v, kl),
+                    fd_r.flash_decode_ref(q, k, v, kl), dt)
+        print(f"[kernels] flash_decode {dt} B={B} H={H} Hkv={Hkv} D={D} S={S} "
+              f"kv_len={kv_spread} max_abs_err={e:.3e} (tol {TOL[dt]})")
+        if dt == "bfloat16":
+            errs.append(e)
+    sets = [(randn((B, H, D), "bfloat16"), randn((B, S, Hkv, D), "bfloat16"),
+             randn((B, S, Hkv, D), "bfloat16")) for _ in range(COPIES)]
+    kl = torch.tensor(kv_spread, device=dev, dtype=torch.int32)
+    ms = time_ms(torch, lambda i: fd_k.flash_decode(*sets[i], kl), COPIES)
+    plain = time_ms(torch, lambda i: fd_r.flash_decode_ref(*sets[i], kl),
+                    COPIES, iters=10)
+    dense = [(q[:, :, None], k.transpose(1, 2).contiguous(),
+              v.transpose(1, 2).contiguous()) for q, k, v in sets]
+    mask = (torch.arange(S, device=dev)[None, :] < kl[:, None].long())[:, None, None, :]
+    lib = time_ms(torch, lambda i: F.scaled_dot_product_attention(
+        *dense[i], attn_mask=mask, enable_gqa=True), COPIES)
+    live = sum(kv_spread)
+    nbytes = 2 * B * H * D * 2 + B * 4 + live * Hkv * D * 2 * 2
+    b_ms, b_by = bound(nbytes, 4.0 * live * H * D, "bfloat16")
+    rows["flash_decode"] = dict(
+        route="cuda", source="src/repro_torch/csrc/paged_flash_decode.cu",
+        replaces="src/repro/kernels/flash_decode/kernel.py:74",
+        max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=b_ms,
+        bound_by=b_by, library_ms=lib)
+    n_tiles = -(-S // fd_k.CONTIG_TILE)
+    print(f"[kernels] flash_decode bf16 timed at kv_len={kv_spread}: {ms:.4f} ms "
+          f"(plain {plain:.4f} ms, SDPA with a length mask {lib:.4f} ms, bound "
+          f"{b_ms:.4f} ms by {b_by}); blocks {B * Hkv}×"
+          f"{fd_k.split_plan(B * Hkv, n_tiles, torch.cuda.get_device_properties(dev).multi_processor_count)}")
 
     # --- flash attention ----------------------------------------------------
     def fa_case(Sq, kvl, causal, window, cap, dt):
@@ -248,6 +300,55 @@ def check_kernels(torch):
         bound_by=b_by, library_ms=lib)
     print(f"[kernels] rmsnorm bf16 timed at (8, 1536): {ms:.4f} ms (plain "
           f"{plain:.4f} ms, F.rms_norm {lib:.4f} ms, bound {b_ms:.6f} ms by {b_by})")
+
+    # --- SSD scan -------------------------------------------------------------
+    SH, SP, SN = 64, 64, 128           # mamba2-1.3b: heads, head_dim, d_state
+
+    def ssd_case(b, s, dt, with_state=True):
+        u = torch.rand((b, s, SH), device=dev, generator=gen)
+        dtv = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
+        A = -torch.arange(1, SH + 1, device=dev, dtype=torch.float32)
+        st = randn((b, SH, SP, SN), dt) * 0.3 if with_state else None
+        return (randn((b, s, SH, SP), dt) * 0.5, dtv, A,
+                randn((b, s, 1, SN), dt) * 0.3, randn((b, s, 1, SN), dt) * 0.3, st)
+
+    errs = []
+    for dt in ("bfloat16", "float32"):
+        for b, s, chunk, with_state in ((1, 64, 64, False), (1, 64, 64, True),
+                                        (8, 64, 64, True), (1, 256, 256, True),
+                                        (8, 256, 256, True), (1, 1024, 256, True),
+                                        (8, 1024, 256, True)):
+            x, dtv, A, Bm, Cm, st = ssd_case(b, s, dt, with_state)
+            y, fin = ssd_k.ssd_scan(x, dtv, A, Bm, Cm, st)
+            y_r, fin_r = ssd_r.ssd_scan_ref(x, dtv, A, Bm, Cm, chunk, st)
+            e = max(max_err(torch, y, y_r, dt), max_err(torch, fin, fin_r, dt))
+            print(f"[kernels] ssd_scan {dt} b={b} s={s} h={SH} p={SP} n={SN} "
+                  f"initial_state={'nonzero' if with_state else 'zero'} (plain at "
+                  f"chunk {chunk}) max_abs_err(y, state)={e:.3e} (tol {TOL[dt]})")
+            if dt == "bfloat16":
+                errs.append(e)
+    sets = [ssd_case(1, 64, "bfloat16") for _ in range(COPIES)]
+    ms = time_ms(torch, lambda i: ssd_k.ssd_scan(*sets[i]), COPIES, iters=100)
+    plain = time_ms(torch, lambda i: ssd_r.ssd_scan_ref(*sets[i][:5], 64, sets[i][5]),
+                    COPIES, iters=20)
+    big = [ssd_case(8, 1024, "bfloat16") for _ in range(2)]
+    ms_big = time_ms(torch, lambda i: ssd_k.ssd_scan(*big[i]), 2, iters=10)
+    b, s = 1, 64
+    nbytes = (2 * b * s * SH * SP * 2 + 2 * b * s * SN * 2 + b * s * SH * 4 + SH * 4
+              + 2 * b * SH * SP * SN * 2)
+    half = (64 + 1) / 2                 # mean causal keys per query, chunk 64
+    flops = b * s * (2 * half * SN + SH * (2 * half * SP + 4 * SP * SN))
+    b_ms, b_by = bound(nbytes, flops, "bfloat16")
+    rows["ssd_scan"] = dict(
+        route="cuda", source="src/repro_torch/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan/kernel.py:63",
+        max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None)
+    print(f"[kernels] ssd_scan bf16 timed at b=1 s=64 (one prefill chunk of one "
+          f"lane, nonzero state): {ms:.4f} ms (plain {plain:.4f} ms, bound "
+          f"{b_ms:.5f} ms by {b_by}); at b=8 s=1024: {ms_big:.4f} ms; library: "
+          f"none (no single PyTorch call computes the SSD scan with its state); "
+          f"grid {SH}×{b} blocks")
     return rows
 
 
@@ -286,8 +387,9 @@ def profile_steps(torch, eng, n: int, prepare=None):
     groups = {}
     for s_, e_, name in spans:
         low = name.lower()
-        g = ("paged_flash_decode" if "decode_" in low else
+        g = ("flash_decode (split + combine)" if "decode_" in low else
              "flash_attention" if "flash_attention" in low else
+             "ssd_scan" if "ssd_scan" in low else
              "rmsnorm" if "rmsnorm" in low else
              "matmul" if any(k in low for k in ("gemm", "nvjet", "cutlass", "xmma", "sm90")) else
              "other")
@@ -386,25 +488,7 @@ def serve_main_path(torch, card: str):
     need(hits > 0, "no prefix hit")
 
     # where a step's time goes: one engine, 8 lanes of 256-token prompts
-    eng = engines[0]
-
-    def admit8():
-        eng.run_until_drained()
-        for _ in range(8):
-            eng.submit(Request(rid=100, prompt=rng.integers(2, V, size=256).tolist(),
-                               max_new_tokens=24, arrival_time=time.monotonic()))
-
-    for label, n, prep in (("admission step (8 prefills of 4×64-token chunks "
-                            "+ 1 decode)", 1, admit8),
-                           ("decode steps (8 active lanes)", 8, None)):
-        wall, disp_n, pwall, busy, groups = profile_steps(torch, eng, n, prep)
-        gtxt = ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in
-                         sorted(groups.items(), key=lambda kv: -kv[1]))
-        print(f"[main] {label}: {wall * 1e3 / disp_n:.2f} ms per dispatch "
-              f"({disp_n} dispatches, host wall); profiled repeat: device busy "
-              f"{busy * 1e3:.2f} ms of {pwall * 1e3:.2f} ms wall "
-              f"(idle {100 * (1 - busy / pwall):.1f}%); kernels: {gtxt or 'none traced'}")
-    backend.pool.run_until_drained()
+    print_steps(torch, "main", engines[0], rng, V)
 
     # --resize-style drain to half the batch, with 4 requests in flight
     in_flight = wave(range(16, 20), [False] * 4)
@@ -449,46 +533,369 @@ def serve_main_path(torch, card: str):
     return counts, main
 
 
+def chunk_plan(n: int, sizes) -> list:
+    """The engine's prefill chunks for an n-token prompt: the descending
+    power-of-two decomposition over ``sizes``."""
+    out = []
+    for c in sizes:
+        while n >= c:
+            out.append(c)
+            n -= c
+    return out
+
+
+def random_prompt(rng, vocab: int, lo: int, hi: int) -> list:
+    return rng.integers(2, vocab, size=int(rng.integers(lo, hi + 1))).tolist()
+
+
+def print_steps(torch, tag: str, eng, rng, vocab: int) -> float:
+    """Host wall and device busy of one admission step (8 prefills of 256
+    tokens) and of 8 decode steps with 8 active lanes; returns the decode
+    steps' device idle share."""
+    from repro_torch.serving.engine import Request
+
+    def admit8():
+        eng.run_until_drained()
+        for _ in range(8):
+            eng.submit(Request(rid=100, prompt=rng.integers(2, vocab, size=256).tolist(),
+                               max_new_tokens=24, arrival_time=time.monotonic()))
+
+    idle = 0.0
+    for label, n, prep in (("admission step (8 prefills of 4×64-token chunks "
+                            "+ 1 decode)", 1, admit8),
+                           ("decode steps (8 active lanes)", 8, None)):
+        wall, disp_n, pwall, busy, groups = profile_steps(torch, eng, n, prep)
+        gtxt = ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in
+                         sorted(groups.items(), key=lambda kv: -kv[1]))
+        idle = 1 - busy / pwall
+        print(f"[{tag}] {label}: {wall * 1e3 / disp_n:.2f} ms per dispatch "
+              f"({disp_n} dispatches, host wall); profiled repeat: device busy "
+              f"{busy * 1e3:.2f} ms of {pwall * 1e3:.2f} ms wall "
+              f"(idle {100 * idle:.1f}%); kernels: {gtxt or 'none traced'}")
+    eng.run_until_drained()
+    return idle
+
+
+def serve_waves(torch, pool, cfg, model: str, rng, waves, max_new: int,
+                dup=None):
+    """Submit each wave of request ids with 128–1024-token prompts (``dup``
+    = (a, b): request b repeats request a's prompt), drain after each wave;
+    returns (requests, finished records, wall seconds)."""
+    from repro_torch.serving.engine import Request
+    reqs, done = [], []
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for wave in waves:
+        batch = []
+        for rid in wave:
+            prompt = random_prompt(rng, cfg.vocab_size, 128, 1024)
+            if dup is not None and rid == dup[1]:
+                prompt = list(next(r.prompt for r in reqs + batch if r.rid == dup[0]))
+            batch.append(Request(rid=rid, prompt=prompt, max_new_tokens=max_new,
+                                 arrival_time=time.monotonic()))
+        for r in batch:
+            need(pool.submit(model, r), f"request {r.rid} not routed")
+        reqs += batch
+        done += pool.run_until_drained()
+    torch.cuda.synchronize()
+    return reqs, done, time.monotonic() - t0
+
+
+def check_served(reqs, done, max_new: int, dup=None) -> dict:
+    by_rid = {d.request.rid: d for d in done}
+    need(sorted(by_rid) == sorted(r.rid for r in reqs), f"finished {sorted(by_rid)}")
+    need(all(len(d.generated) == max_new for d in done),
+         "a request finished short of its token budget")
+    if dup is not None:
+        need(by_rid[dup[0]].generated == by_rid[dup[1]].generated,
+             "the same request served twice gave different tokens")
+    return by_rid
+
+
+def serve_mamba2(torch, card: str):
+    """Phase 4b: mamba2-1.3b at full width through TorchBackend."""
+    import numpy as np
+    from repro_torch.core.plan import Plan, ReplicaGroup
+    from repro_torch.kernels.rmsnorm import kernel as rms_k
+    from repro_torch.kernels.ssd_scan import kernel as ssd_k
+    from repro_torch.serving.backend import (make_torch_backend,
+                                             measured_interval_metrics)
+    from repro_torch.serving.engine import Request
+
+    t0 = time.monotonic()
+    backend = make_torch_backend("mamba2-1.3b", seed=0, reduced=False,
+                                 max_seq_len=2048, slots_cap=8,
+                                 max_replicas_per_group=2)
+    cfg = backend.cfg
+    L, V, MAX_NEW, model = cfg.n_layers, cfg.vocab_size, 32, cfg.name
+    rep = backend.apply_plan(Plan((ReplicaGroup(model, "H100-80G", tp=1,
+                                                batch=8, count=2),)), None)
+    engines = list(backend.pool.engines)
+    need(len(engines) == 2 and all(e.n_slots == 8 and not e.paged for e in engines),
+         "plan did not build 2 contiguous replicas × 8 slots")
+    state_mb = sum(t.numel() * t.element_size() for t in engines[0].cache.values()) / 2**20
+    s = cfg.ssm
+    print(f"[mamba2] {model}: L={L} d={cfg.d_model} d_inner={s.d_inner(cfg.d_model)} "
+          f"heads={s.n_heads(cfg.d_model)}×{s.head_dim} d_state={s.d_state} V={V} "
+          f"{cfg.dtype}, {sum(p.numel() for p in backend.params.parameters()) / 1e9:.3f}B "
+          f"params; 2 replicas × 8 slots, conv+SSM state {state_mb:.1f} MiB per "
+          f"engine; built in {time.monotonic() - t0:.2f}s (apply_plan "
+          f"{rep.wall_s * 1e3:.1f} ms); prefill chunks {engines[0]._chunk_sizes}")
+
+    rng = np.random.default_rng(1)
+    backend.pool.submit(model, Request(rid=-1, prompt=list(range(2, 200)),
+                                       max_new_tokens=4))
+    backend.pool.run_until_drained()           # warm-up, not counted
+    backend.pool.finished.clear()
+    d0 = backend.pool.total_dispatches
+    rms_k.launches = ssd_k.launches = 0
+    reqs, done, wall = serve_waves(torch, backend.pool, cfg, model, rng,
+                                   (range(0, 8), range(8, 16)), MAX_NEW, dup=(4, 5))
+    counts = {"ssd_scan": ssd_k.launches, "rmsnorm": rms_k.launches}
+    disp = backend.pool.total_dispatches - d0
+    check_served(reqs, done, MAX_NEW, dup=(4, 5))
+    met = measured_interval_metrics(done, wall)
+    chunks = [c for r in reqs for c in chunk_plan(len(r.prompt), engines[0]._chunk_sizes)]
+    scans = sum(c > 1 for c in chunks)
+    print(f"[mamba2] served {met.requests} requests / {met.tokens} tokens in "
+          f"{wall:.3f}s: {met.tokens_per_s:.1f} tok/s, TTFT p50 "
+          f"{met.ttft_p50_s * 1e3:.1f} ms p95 {met.ttft_p95_s * 1e3:.1f} ms, TPOT "
+          f"{met.tpot_s * 1e3:.2f} ms, {disp} dispatches ({len(chunks)} prefill "
+          f"chunks, {scans} with C > 1) [{card}; 128-1024-token prompts, "
+          f"{MAX_NEW} new tokens]")
+    print(f"[mamba2] launches {counts}: ssd_scan = L·{scans} prefill chunks with "
+          f"C > 1, rmsnorm = (2L+1)·{disp} dispatches (L={L}; the gated norm "
+          f"runs through the kernel)")
+    need(counts["ssd_scan"] == L * scans, "ssd_scan launches != L per prefill chunk with C > 1")
+    need(counts["rmsnorm"] == (2 * L + 1) * disp, "rmsnorm launches != (2L+1)·dispatches")
+    idle = print_steps(torch, "mamba2", engines[0], rng, V)
+    metrics = dict(tokens_per_s=met.tokens_per_s, ttft_p50_ms=met.ttft_p50_s * 1e3,
+                   ttft_p95_ms=met.ttft_p95_s * 1e3, tpot_ms=met.tpot_s * 1e3,
+                   requests=met.requests, dispatches=disp,
+                   decode_idle_share=idle)
+    del backend, engines
+    torch.cuda.empty_cache()
+    return counts, metrics
+
+
+def serve_contiguous_qwen2(torch, card: str):
+    """Phase 4c: qwen2-1.5b on the contiguous cache, one engine × 8 slots
+    in an ``EnginePool``."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.plan import Plan, ReplicaGroup
+    from repro_torch.kernels.flash_attention import kernel as fa_k
+    from repro_torch.kernels.flash_decode import kernel as fd_k
+    from repro_torch.models import lm
+    from repro_torch.serving.backend import measured_interval_metrics
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.pool import EnginePool
+
+    cfg = get_config("qwen2-1.5b")
+    params = lm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    pool = EnginePool(lambda g: Engine(cfg, params, n_slots=g.batch, max_seq_len=2048,
+                                       paged=False, device="cuda"))
+    L, MAX_NEW, model = cfg.n_layers, 32, cfg.name
+    pool.reconfigure(Plan((ReplicaGroup(model, "H100-80G", tp=1, batch=8, count=1),)))
+    [eng] = pool.engines
+    need(eng.n_slots == 8 and not eng.paged, "plan did not build one contiguous 8-slot engine")
+    cache_mb = sum(t.numel() * t.element_size() for t in eng.cache.values()) / 2**20
+    rng = np.random.default_rng(3)
+    serve_waves(torch, pool, cfg, model, rng, (range(0, 4),), 4)   # warm-up
+    pool.finished.clear()
+    d0 = eng.dispatches
+    fa_k.launches = fd_k.contig_launches = 0
+    reqs, done, wall = serve_waves(torch, pool, cfg, model, rng, (range(0, 8),),
+                                   MAX_NEW, dup=(2, 3))
+    counts = {"flash_decode": fd_k.contig_launches, "flash_attention": fa_k.launches}
+    disp = eng.dispatches - d0
+    check_served(reqs, done, MAX_NEW, dup=(2, 3))
+    met = measured_interval_metrics(done, wall)
+    chunks = [c for r in reqs for c in chunk_plan(len(r.prompt), eng._chunk_sizes)]
+    multi = sum(c > 1 for c in chunks)
+    print(f"[contiguous] {model} paged=False, 1 engine × 8 slots, max_seq_len 2048, "
+          f"K/V/pos cache {cache_mb:.1f} MiB: served {met.requests} requests / "
+          f"{met.tokens} tokens in {wall:.3f}s: {met.tokens_per_s:.1f} tok/s, TTFT "
+          f"p50 {met.ttft_p50_s * 1e3:.1f} ms p95 {met.ttft_p95_s * 1e3:.1f} ms, TPOT "
+          f"{met.tpot_s * 1e3:.2f} ms; {disp} dispatches ({len(chunks)} prefill "
+          f"chunks, {multi} with C > 1) [{card}]")
+    print(f"[contiguous] launches {counts}: flash_decode = L·{disp - multi} "
+          f"dispatches with C = 1, flash_attention = L·{multi} prefill chunks "
+          f"with C > 1 (L={L})")
+    need(counts["flash_attention"] == L * multi,
+         "flash_attention launches != L per contiguous prefill chunk with C > 1")
+    need(counts["flash_decode"] == L * (disp - multi),
+         "flash_decode launches != L per dispatch with C = 1")
+    metrics = dict(tokens_per_s=met.tokens_per_s, ttft_p50_ms=met.ttft_p50_s * 1e3,
+                   ttft_p95_ms=met.ttft_p95_s * 1e3, tpot_ms=met.tpot_s * 1e3,
+                   requests=met.requests, dispatches=disp)
+    del pool, eng, params
+    torch.cuda.empty_cache()
+    return counts, metrics
+
+
+def last_logits(torch, lm, model, cfg, seq) -> "torch.Tensor":
+    """f32 logits after ``seq`` from a fresh one-row contiguous cache."""
+    cache = lm.init_cache(cfg, 1, len(seq) + 1, device="cuda")
+    off = 0
+    with torch.inference_mode():
+        for c in chunk_plan(len(seq), (64, 32, 16, 8, 4, 2, 1)):
+            logits, _ = lm.step_with_cache(
+                model, cfg, cache, torch.tensor([seq[off:off + c]], device="cuda"),
+                torch.arange(off, off + c, device="cuda")[None], last_only=True)
+            off += c
+    return logits[0, -1].float().cpu()
+
+
+def live_migration(torch, card: str):
+    """Phase 4d: a migrate resize with 4 requests in flight, for paged →
+    paged and contiguous → paged qwen2-1.5b and contiguous → contiguous
+    mamba2-1.3b; tokens against the same requests served undisturbed."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.plan import Plan, ReplicaGroup
+    from repro_torch.core.policy import ReconfigPolicy
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import Engine, Request
+    from repro_torch.serving.pool import EnginePool
+
+    MAX_NEW, tol = 32, TOL["bfloat16"]
+    g8 = ReplicaGroup("m", "H100-80G", tp=1, batch=8, count=1)
+    g4 = ReplicaGroup("m", "H100-80G", tp=1, batch=4, count=1)
+    rng = np.random.default_rng(4)
+    out = {}
+    for arch, src_paged, dst_paged in (("qwen2-1.5b", True, True),
+                                       ("qwen2-1.5b", False, True),
+                                       ("mamba2-1.3b", False, False)):
+        cfg = get_config(arch)
+        model = lm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+
+        def engine(n_slots, paged):
+            return Engine(cfg, model, n_slots=n_slots, max_seq_len=1024,
+                          paged=paged, device="cuda")
+
+        prompts = {rid: random_prompt(rng, cfg.vocab_size, 128, 512) for rid in range(4)}
+        ref = engine(8, src_paged)              # undisturbed, same shape as the source
+        for rid, p in prompts.items():
+            ref.submit(Request(rid=rid, prompt=list(p), max_new_tokens=MAX_NEW))
+        want = {d.request.rid: d.generated for d in ref.run_until_drained()}
+        del ref
+        pool = EnginePool(lambda g: engine(g.batch, src_paged if g.batch == 8 else dst_paged),
+                          max_replicas_per_group=1)
+        pool.set_reconfig_policy(ReconfigPolicy(lambda m: "migrate", name="migrate"))
+        pool.reconfigure(Plan((g8,)))
+        for rid, p in prompts.items():
+            need(pool.submit("m", Request(rid=rid, prompt=list(p), max_new_tokens=MAX_NEW)),
+                 "not routed")
+        src = pool.engines[0]
+        for _ in range(5):                      # admit all 4, then 4 more decode steps
+            src.step()
+        need(len(src.active) == 4, "requests not in flight at the resize")
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        d = pool.reconfigure(Plan((g4,)))
+        torch.cuda.synchronize()
+        resize_s = time.monotonic() - t0
+        pool.run_until_drained()
+        got = {s.request.rid: s.generated for s in pool.finished}
+        need(d.migrated_requests == 4 and d.recomputed_requests == 0
+             and d.drained_requests == 0,
+             f"{arch}: migrated {d.migrated_requests}, recomputed "
+             f"{d.recomputed_requests}, drained {d.drained_requests}")
+        need(sorted(got) == sorted(prompts) and all(len(g) == MAX_NEW for g in got.values()),
+             f"{arch}: migrated requests lost or cut short")
+        equal, gaps = 0, []
+        for rid, p in prompts.items():
+            if got[rid] == want[rid]:
+                equal += 1
+                continue
+            i = next(j for j, (a, b) in enumerate(zip(got[rid], want[rid])) if a != b)
+            lg = last_logits(torch, lm, model, cfg, p + want[rid][:i])
+            gap = abs(float(lg[want[rid][i]]) - float(lg[got[rid][i]]))
+            gaps.append(gap)
+            print(f"[migrate] {arch} request {rid}: first differing token at "
+                  f"position {i}, logit gap {gap:.4e}")
+            need(gap <= tol + tol * abs(float(lg[want[rid][i]])),
+                 f"{arch} request {rid}: migrated tokens differ beyond a bf16 tie")
+        leaked = sum(e.release_all_pages() for e in pool.engines)
+        need(leaked == 0, f"{arch}: leaked pages {leaked}")
+        kind = lambda paged: "paged" if paged else "contiguous"
+        tag = f"{arch} {kind(src_paged)}→{kind(dst_paged)}"
+        print(f"[migrate] {tag} (8 → 4 slots, 4 requests of 128-512 tokens in "
+              f"flight after 4 decode steps): migrated {d.migrated_requests}, "
+              f"recomputed {d.recomputed_requests}, drained {d.drained_requests}; "
+              f"migrate_wall_s {d.migrate_wall_s:.4f}, reconfigure {resize_s:.4f}s; "
+              f"tokens equal to the undisturbed run for {equal}/4, "
+              f"{len(gaps)} within-tolerance ties [{card}]")
+        out[tag] = dict(migrated=d.migrated_requests, migrate_wall_s=d.migrate_wall_s,
+                        reconfigure_s=resize_s, equal=equal, ties=len(gaps))
+        del pool, src, model
+        torch.cuda.empty_cache()
+    return out
+
+
 # --------------------------------------------------------------------------- #
 # phase 5: port on the card vs port on the CPU
 # --------------------------------------------------------------------------- #
-def card_vs_cpu(torch):
+def card_vs_cpu(torch, arch: str, cpu_dtype: str = "float32",
+                elementwise: bool = True):
+    """The port on the card (bf16, kernels) against the port on the CPU
+    (``cpu_dtype``, plain versions) with the same weight values: 2 layers
+    at full width, 4 lanes of which lane 2 is inactive, one 64-token
+    prefill chunk, then 8 decode steps — qwen2 through the paged pool,
+    mamba2 through the contiguous state cache.  A differing argmax must be
+    a tie at the bf16 tolerance; ``elementwise`` also holds every active
+    logit to it (otherwise the count beyond it is printed)."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.models import lm
 
-    cfg_gpu = dataclasses.replace(get_config("qwen2-1.5b"), n_layers=2)
-    cfg_cpu = dataclasses.replace(cfg_gpu, dtype="float32")
+    cfg_gpu = dataclasses.replace(get_config(arch), n_layers=2)
+    cfg_cpu = dataclasses.replace(cfg_gpu, dtype=cpu_dtype)
     m_cpu = lm.init_params(cfg_cpu, torch.Generator().manual_seed(7), "cpu")
-    m_gpu = lm.PagedLM(cfg_gpu, "cuda")
+    m_gpu = lm.LM(cfg_gpu, "cuda")
     with torch.no_grad():        # the same weight values on both sides:
         for (n, pg), (n2, pc) in zip(m_gpu.named_parameters(), m_cpu.named_parameters()):
             need(n == n2, f"parameter order {n} != {n2}")
             pg.copy_(pc)            # bf16 on the card ...
-            pc.copy_(pg.float().cpu())   # ... and those bf16 values in f32 here
+            pc.copy_(pg.cpu())      # ... and those bf16 values here
     B, C, PAGE, NPT, STEPS = 4, 64, 16, 5, 8
     active = np.array([True, True, False, True])
     rng = np.random.default_rng(3)
-    ptab = (1 + np.arange(B * NPT)).reshape(B, NPT).astype(np.int32)
-    ptab[~active] = 0
-    caches = {"cpu": lm.init_paged_cache(cfg_cpu, 1 + B * NPT, PAGE, device="cpu"),
-              "cuda": lm.init_paged_cache(cfg_gpu, 1 + B * NPT, PAGE, device="cuda")}
+    paged = lm.pageable(cfg_gpu)
+    if paged:
+        ptab = (1 + np.arange(B * NPT)).reshape(B, NPT).astype(np.int32)
+        ptab[~active] = 0
+        caches = {"cpu": lm.init_paged_cache(cfg_cpu, 1 + B * NPT, PAGE, device="cpu"),
+                  "cuda": lm.init_paged_cache(cfg_gpu, 1 + B * NPT, PAGE, device="cuda")}
+    else:
+        caches = {"cpu": lm.init_cache(cfg_cpu, B, C + STEPS + 1, device="cpu"),
+                  "cuda": lm.init_cache(cfg_gpu, B, C + STEPS + 1, device="cuda")}
     tokens = rng.integers(2, cfg_gpu.vocab_size, size=(B, C)).astype(np.int32)
     pos2 = np.broadcast_to(np.arange(C, dtype=np.int32), (B, C)).copy()
-    worst, agree, near, total = 0.0, 0, 0, 0
+    worst, agree, near, total, beyond = 0.0, 0, 0, 0, 0
     tol = TOL["bfloat16"]
     for step in range(STEPS + 1):
         out = {}
         for dev, cfg, m in (("cpu", cfg_cpu, m_cpu), ("cuda", cfg_gpu, m_gpu)):
+            t = lambda a: torch.from_numpy(a).to(dev)
             with torch.inference_mode():
-                logits, _ = lm.paged_step(
-                    m, cfg, caches[dev], torch.from_numpy(tokens).to(dev),
-                    torch.from_numpy(pos2).to(dev), torch.from_numpy(ptab).to(dev),
-                    torch.from_numpy(active).to(dev), page_size=PAGE)
+                if paged:
+                    logits, _ = lm.paged_step(m, cfg, caches[dev], t(tokens), t(pos2),
+                                              t(ptab), t(active), page_size=PAGE)
+                else:
+                    logits, _ = lm.step_with_cache(m, cfg, caches[dev], t(tokens),
+                                                   t(pos2), write=t(np.flatnonzero(active)))
             out[dev] = logits.float().cpu()
         a = torch.from_numpy(active)
         want, got = out["cpu"][a], out["cuda"][a]
-        worst = max(worst, max_err(torch, got, want, "bfloat16"))
+        need(bool(torch.isfinite(got).all()), f"step {step}: non-finite logits")
+        if elementwise:
+            worst = max(worst, max_err(torch, got, want, "bfloat16"))
+        else:
+            diff = (got - want).abs()
+            worst = max(worst, float(diff.max()))
+            beyond += int((diff > tol + tol * want.abs()).sum())
         top_c = want.argmax(-1)
         top_g = got.argmax(-1)
         same = top_c == top_g
@@ -502,14 +909,24 @@ def card_vs_cpu(torch):
         total += same.numel()
         tokens = out["cpu"][:, -1].argmax(-1).numpy()[:, None].astype(np.int32)
         pos2 = (pos2[:, -1:] + 1).astype(np.int32)
-    print(f"[card-vs-cpu] qwen2-1.5b width, 2 layers, 1 prefill chunk of {C} + "
-          f"{STEPS} decode steps, {B} lanes (1 inactive): max |logit diff| "
-          f"{worst:.4e} (tol {tol} abs + rel); argmax equal at {agree}/{total} "
-          f"active positions, {near} within-tolerance ties")
+    held = (f"(tol {tol} abs + rel)" if elementwise else
+            f"({beyond} of {total * cfg_gpu.vocab_size} active logits beyond "
+            f"{tol} abs + rel: reported, not gated)")
+    print(f"[card-vs-cpu] {arch} width, 2 layers, {'paged' if paged else 'contiguous'} "
+          f"cache, CPU in {cpu_dtype}, 1 prefill chunk of {C} + {STEPS} decode "
+          f"steps, {B} lanes (1 inactive): max |logit diff| {worst:.4e} {held}; "
+          f"argmax equal at {agree}/{total} active positions, {near} "
+          f"within-tolerance ties")
     return worst
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--only", choices=["kernels"],
+                    help="stop after phase 3 (build and kernel checks), without "
+                         "the final JSON line")
+    args = ap.parse_args(argv)
     import torch
     # phase 1: device
     need(torch.cuda.is_available(), "torch.cuda.is_available() is false")
@@ -527,31 +944,64 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels.rmsnorm import kernel as rms_k
     t0 = time.monotonic()
-    build.build(["paged_flash_decode", "flash_attention"])
+    build.build(SOURCES)
     t_nvcc = time.monotonic() - t0
     x = torch.ones((2, 1536), device="cuda", dtype=torch.bfloat16)
     rms_k.rmsnorm(x, torch.zeros(1536, device="cuda"))
     torch.cuda.synchronize()
-    print(f"[build] nvcc (2 sources in parallel) {t_nvcc:.2f}s; Triton rmsnorm "
-          f"first compile+launch {time.monotonic() - t0 - t_nvcc:.2f}s")
-    for src in ("paged_flash_decode", "flash_attention"):
+    print(f"[build] nvcc ({len(SOURCES)} sources in parallel) {t_nvcc:.2f}s; "
+          f"Triton rmsnorm first compile+launch "
+          f"{time.monotonic() - t0 - t_nvcc:.2f}s")
+    for src in SOURCES:
         for kernel, regs, spills in ptxas_summary(build.build_log(src)):
             print(f"[build] {src}: {kernel} {regs} registers, {spills}")
+    # dynamic shared memory per block, from the kernels' layouts at the
+    # main paths' shapes (ptxas reports static shared memory only)
+    G, D, T, P, N, LC = 6, 128, 16, 64, 128, 32
+    smem = {"decode_split_kernel (G=6, D=128, 16-row tiles)":
+            4 * (2 * G * D + T * (2 * D + 1) + G * T + 3 * G),
+            "flash_attention_kernel (D=128)":
+            4 * (64 * (D + 1) + 32 * (D + 1) + 32 * D + 64 * 33),
+            "ssd_scan_kernel (p=64, n=128, 32-position chunks)":
+            4 * (2 * LC * (N + 1) + LC * P + LC * (LC + 1) + P * (N + 1) + 3 * LC)}
+    print("[build] dynamic shared memory per block: " + "; ".join(
+        f"{k} {v:,} B" for k, v in smem.items()))
 
     # phase 3
     rows = check_kernels(torch)
-    # phase 4
+    if args.only == "kernels":
+        return 0
+    # phase 4: each path drives its kernels with the counts zeroed just
+    # before it; a kernel's launches are those of the path it serves
     counts, main_metrics = serve_main_path(torch, card)
+    ssm_counts, ssm_metrics = serve_mamba2(torch, card)
+    contig_counts, contig_metrics = serve_contiguous_qwen2(torch, card)
+    migration = live_migration(torch, card)
+    launches = {"paged_flash_decode": counts["paged_flash_decode"],
+                "flash_attention": counts["flash_attention"],
+                "rmsnorm": counts["rmsnorm"],
+                "flash_decode": contig_counts["flash_decode"],
+                "ssd_scan": ssm_counts["ssd_scan"]}
+    need(all(n > 0 for n in launches.values()), f"a kernel never launched: {launches}")
     # phase 5
-    card_vs_cpu(torch)
+    card_vs_cpu(torch, "qwen2-1.5b")
+    # mamba2's own bf16 rounding exceeds the bf16 tolerance against f32 at
+    # a few hundred prefill logits (so does the CPU alone in bf16 vs f32),
+    # so the card is held elementwise to the CPU in bf16, and to the CPU
+    # in f32 by its greedy tokens (ties allowed)
+    card_vs_cpu(torch, "mamba2-1.3b", "bfloat16")
+    card_vs_cpu(torch, "mamba2-1.3b", "float32", elementwise=False)
 
     # phase 6
     kernels = [dict(name=k, **{key: rows[k][key] for key in (
-        "route", "source", "replaces")}, launches=counts[k],
+        "route", "source", "replaces")}, launches=launches[k],
         **{key: rows[k][key] for key in ("max_abs_err", "ms", "plain_ms",
                                           "bound_ms", "bound_by", "library_ms")})
-        for k in ("paged_flash_decode", "flash_attention", "rmsnorm")]
-    print(json.dumps({"main_path": main_metrics, "card": card}))
+        for k in ("paged_flash_decode", "flash_attention", "rmsnorm",
+                  "flash_decode", "ssd_scan")]
+    print(json.dumps({"main_path": main_metrics, "mamba2": ssm_metrics,
+                      "contiguous_qwen2": contig_metrics, "migration": migration,
+                      "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

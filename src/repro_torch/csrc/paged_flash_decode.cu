@@ -1,22 +1,27 @@
-// Paged flash-decode for Hopper (sm_90a), plain C interface for ctypes.
+// Flash-decode for Hopper (sm_90a), paged and contiguous, plain C interface
+// for ctypes.
 //
-// Replaces the TPU kernel src/repro/kernels/flash_decode/kernel.py
-// ::paged_flash_decode_kernel (body _paged_decode_kernel): one-token GQA
-// decode attention over a block-paged KV pool.
+// Replaces two TPU kernels of src/repro/kernels/flash_decode/kernel.py:
+// paged_flash_decode_kernel (body _paged_decode_kernel), one-token GQA
+// decode attention over a block-paged KV pool, and flash_decode_kernel
+// (body _decode_kernel), the same over a contiguous (B, S, Hkv, D) cache
+// with a kv_len mask.  One split kernel serves both: kContig selects how a
+// tile of keys is addressed (a page id from ptab, or rows b*S + p*page of
+// the contiguous cache by stride -- no page table is built for it).
 //
 // Bound: bytes (each live K/V element is read once for the G = H/Hkv query
 // heads of its group, ~4G flops per element).  Pass 1: grid (B*Hkv,
 // n_splits); a block owns one (lane, KV head) and a run of pages_per_split
-// pages.  Page ids are read from ptab inside the kernel, page by page.  The
-// next page's K and V rows are fetched into registers with 16-byte loads
-// while the current page is processed from shared memory (f32), so load
-// latency overlaps the G x page scores, the online-softmax update (m, l)
-// per query head and the P.V accumulation, all in f32.  Pages at or past
-// kv_len, or wholly below the sliding window's lower bound, are never
-// loaded, and a split with no live page exits at once.  A live block writes
-// its partial (m, l, acc).  Pass 2: grid (B*Hkv) rescales and sums the
-// partials of the live splits and writes acc / max(l, 1e-30) -- zero for
-// kv_len = 0, as the TPU kernel's flush.
+// tiles ("pages").  The next tile's K and V rows are fetched into
+// registers with 16-byte loads while the current tile is processed from
+// shared memory (f32), so load latency overlaps the G x page scores, the
+// online-softmax update (m, l) per query head and the P.V accumulation,
+// all in f32.  Tiles at or past kv_len, or wholly below the sliding
+// window's lower bound, are never loaded, and a split with no live tile
+// exits at once.  A live block writes its partial (m, l, acc).  Pass 2:
+// grid (B*Hkv) rescales and sums the partials of the live splits and
+// writes acc / max(l, 1e-30) -- zero for kv_len = 0, as the TPU kernels'
+// flush.
 
 #include <stddef.h>
 
@@ -30,12 +35,15 @@ using repro::Pack8;
 constexpr int kThreads = 128;
 constexpr int kMaxLoads = 4;     // Pack8 fetches per thread per page: page*D <= 4096
 
-template <typename T>
+// kContig: kp/vp are the (B, S, Hkv, D) cache and tile p of lane b is rows
+// [p*page, p*page + page) of that lane (rows past S read as zero); ptab is
+// not read.  Otherwise tile p of lane b is physical page ptab[b][p].
+template <typename T, bool kContig>
 __global__ void __launch_bounds__(kThreads) decode_split_kernel(
     const T* __restrict__ q, const T* __restrict__ kp, const T* __restrict__ vp,
     const int* __restrict__ ptab, const int* __restrict__ kv_len,
     float* __restrict__ part_acc, float* __restrict__ part_ml,
-    int H, int Hkv, int D, int page, int n_ptab, int pages_per_split,
+    int H, int Hkv, int D, int page, int n_ptab, int S, int pages_per_split,
     int window, float scale) {
   const int G = H / Hkv;
   const int bh = blockIdx.x;
@@ -77,15 +85,21 @@ __global__ void __launch_bounds__(kThreads) decode_split_kernel(
   const int nvec = page * dv;
   Pack8<T> kr[kMaxLoads], vr[kMaxLoads];
   auto fetch = [&](int p) {
-    const size_t row0 = (size_t)ptab[(size_t)b * n_ptab + p] * page;
+    const size_t row0 = kContig ? (size_t)b * S + (size_t)p * page
+                                : (size_t)ptab[(size_t)b * n_ptab + p] * page;
 #pragma unroll
     for (int j = 0; j < kMaxLoads; ++j) {
       const int i = tid + j * kThreads;
       if (i < nvec) {
         const int t = i / dv;
-        const size_t off = ((row0 + t) * Hkv + kvh) * D + (i - t * dv) * 8;
-        kr[j].load(kp + off);
-        vr[j].load(vp + off);
+        if (!kContig || p * page + t < S) {
+          const size_t off = ((row0 + t) * Hkv + kvh) * D + (i - t * dv) * 8;
+          kr[j].load(kp + off);
+          vr[j].load(vp + off);
+        } else {                              // ragged last tile of the lane
+          kr[j].zero();
+          vr[j].zero();
+        }
       }
     }
   };
@@ -196,12 +210,12 @@ __global__ void __launch_bounds__(kThreads) decode_combine_kernel(
   }
 }
 
-template <typename T>
+template <typename T, bool kContig>
 cudaError_t launch(const void* q, const void* kp, const void* vp,
                    const void* ptab, const void* kv_len, void* out,
                    void* part_acc, void* part_ml, int B, int H, int Hkv, int D,
-                   int page, int n_ptab, int pages_per_split, int n_splits,
-                   int window, float scale, cudaStream_t stream) {
+                   int page, int n_ptab, int S, int pages_per_split,
+                   int n_splits, int window, float scale, cudaStream_t stream) {
   if (D % 8 != 0 || page * D > kMaxLoads * 8 * kThreads) return cudaErrorInvalidValue;
   const int G = H / Hkv;
   const size_t smem =
@@ -209,17 +223,18 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
                        (size_t)G * page + 3 * G);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        decode_split_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        decode_split_kernel<T, kContig>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return e;
   }
   dim3 grid(B * Hkv, n_splits);
-  decode_split_kernel<T><<<grid, kThreads, smem, stream>>>(
+  decode_split_kernel<T, kContig><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp),
       static_cast<const T*>(vp), static_cast<const int*>(ptab),
       static_cast<const int*>(kv_len), static_cast<float*>(part_acc),
-      static_cast<float*>(part_ml), H, Hkv, D, page, n_ptab, pages_per_split,
-      window, scale);
+      static_cast<float*>(part_ml), H, Hkv, D, page, n_ptab, S,
+      pages_per_split, window, scale);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   decode_combine_kernel<T><<<B * Hkv, kThreads, 0, stream>>>(
@@ -243,12 +258,36 @@ extern "C" int paged_flash_decode(int dtype, const void* q, const void* kp,
                                   void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(q, kp, vp, ptab, kv_len, out, part_acc, part_ml, B, H,
-                         Hkv, D, page, n_ptab, pages_per_split, n_splits,
-                         window, scale, st);
+    return launch<float, false>(q, kp, vp, ptab, kv_len, out, part_acc,
+                                part_ml, B, H, Hkv, D, page, n_ptab, 0,
+                                pages_per_split, n_splits, window, scale, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, kp, vp, ptab, kv_len, out, part_acc,
-                                 part_ml, B, H, Hkv, D, page, n_ptab,
-                                 pages_per_split, n_splits, window, scale, st);
+    return launch<__nv_bfloat16, false>(q, kp, vp, ptab, kv_len, out,
+                                        part_acc, part_ml, B, H, Hkv, D, page,
+                                        n_ptab, 0, pages_per_split, n_splits,
+                                        window, scale, st);
+  return cudaErrorInvalidValue;
+}
+
+// Contiguous cache k, v (B, S, Hkv, D), read in tiles of `tile` rows
+// (tile * D <= 4096, D % 8 == 0, 16-byte aligned); no window.  Same
+// partial buffers and return value as paged_flash_decode.
+extern "C" int flash_decode(int dtype, const void* q, const void* k,
+                            const void* v, const void* kv_len, void* out,
+                            void* part_acc, void* part_ml, int B, int H,
+                            int Hkv, int D, int S, int tile,
+                            int tiles_per_split, int n_splits, float scale,
+                            void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int n_tiles = (S + tile - 1) / tile;
+  if (dtype == 0)
+    return launch<float, true>(q, k, v, nullptr, kv_len, out, part_acc,
+                               part_ml, B, H, Hkv, D, tile, n_tiles, S,
+                               tiles_per_split, n_splits, -1, scale, st);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, true>(q, k, v, nullptr, kv_len, out,
+                                       part_acc, part_ml, B, H, Hkv, D, tile,
+                                       n_tiles, S, tiles_per_split, n_splits,
+                                       -1, scale, st);
   return cudaErrorInvalidValue;
 }

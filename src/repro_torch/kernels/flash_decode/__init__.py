@@ -1,1 +1,1 @@
-"""Paged flash-decode: CUDA kernel + plain version (port of ``src/repro/kernels/flash_decode/``, paged path)."""
+"""Flash-decode, contiguous and paged: CUDA kernels + plain versions (port of ``src/repro/kernels/flash_decode/``)."""

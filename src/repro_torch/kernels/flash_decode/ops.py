@@ -1,5 +1,6 @@
-"""Public paged flash-decode ops (port of ``src/repro/kernels/flash_decode/ops.py``,
-the paged entry points).
+"""Public flash-decode ops, contiguous and paged (port of
+``src/repro/kernels/flash_decode/ops.py``; the ``shard_map`` wrapper comes
+with the sharded slice).
 
 A tensor on the card goes to the CUDA kernel; a tensor on the CPU goes to
 the plain PyTorch version.  Nothing else: no fall-back between the two.
@@ -12,7 +13,19 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.flash_decode import kernel
-from repro_torch.kernels.flash_decode.ref import paged_flash_decode_ref
+from repro_torch.kernels.flash_decode.ref import (flash_decode_ref,
+                                                  paged_flash_decode_ref)
+
+
+def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 kv_len: torch.Tensor) -> torch.Tensor:
+    """Contiguous decode: q (B, H, D); k, v (B, S, Hkv, D) un-repeated;
+    kv_len (B,) int32."""
+    if q.device.type == "cuda":
+        return kernel.flash_decode(q, k, v, kv_len)
+    if q.device.type == "cpu":
+        return flash_decode_ref(q, k, v, kv_len)
+    raise ValueError(f"flash_decode: unsupported device {q.device}")
 
 
 def paged_flash_decode(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,

@@ -1,10 +1,11 @@
-"""Plain PyTorch paged decode attention (port of
-``src/repro/kernels/flash_decode/ref.py::paged_flash_decode_ref``).
+"""Plain PyTorch decode attention, paged and contiguous (port of
+``src/repro/kernels/flash_decode/ref.py``).
 
-The specification the CUDA kernel is held to, and what the op runs for
-tensors on the CPU.  It follows the kernel's contract exactly, including a
-lane with ``kv_len = 0`` (nothing to attend) writing zeros, as the TPU
-kernel's ``acc / max(l, 1e-30)`` flush does.
+The specifications the CUDA kernels are held to, and what the ops run for
+tensors on the CPU.  They follow the kernels' contract exactly, including
+a lane with ``kv_len = 0`` (nothing to attend) writing zeros, as the TPU
+kernels' ``acc / max(l, 1e-30)`` flush does.  Unlike the JAX
+``flash_decode_ref``, the contiguous version takes K/V un-repeated.
 """
 from __future__ import annotations
 
@@ -14,6 +15,23 @@ from typing import Optional
 import torch
 
 NEG_INF = -2.0 ** 30
+
+
+def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     kv_len: torch.Tensor) -> torch.Tensor:
+    """q: (B, H, D); k, v: (B, S, Hkv, D) un-repeated; kv_len: (B,).
+    Returns (B, H, D) in q's dtype; all arithmetic in f32."""
+    B, S, Hkv, D = k.shape
+    H = q.shape[1]
+    qg = q.float().reshape(B, Hkv, H // Hkv, D)
+    s = torch.einsum("bhgd,bshd->bhgs", qg, k.float()) * (1.0 / math.sqrt(D))
+    valid = (torch.arange(S, device=q.device)[None, :]
+             < kv_len.long()[:, None])[:, None, None, :]
+    s = s.masked_fill(~valid, NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True)) * valid
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bhgs,bshd->bhgd", p, v.float()) / l.clamp(min=1e-30)
+    return o.reshape(B, H, D).to(q.dtype)
 
 
 def paged_flash_decode_ref(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,

@@ -1,4 +1,5 @@
-"""Transformer layers, dense paged subset (port of ``src/repro/models/layers.py``).
+"""Transformer layers, dense subset, paged and contiguous caches (port of
+``src/repro/models/layers.py``).
 
 Weights keep the JAX package's ``(d_in, d_out)`` layout and are applied as
 ``x @ w``, so carrying JAX weights over is a plain copy.  On the card the
@@ -8,14 +9,14 @@ the numbers are the same.  Norm scales stay f32 (the norm computes in f32).
 
 The projections, the SwiGLU products and the tied head stay ``torch.matmul``:
 they are plain products that the JAX package leaves to XLA outside any
-Pallas kernel.  RMSNorm, paged decode attention and prefill attention go
-through the port's kernel ops (Triton / CUDA on the card, their plain
-versions on the CPU).
+Pallas kernel.  RMSNorm, decode attention (paged and contiguous) and
+prefill attention go through the port's kernel ops (Triton / CUDA on the
+card, their plain versions on the CPU).
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -120,11 +121,11 @@ def _weight(shape, dtype, device) -> nn.Parameter:
 
 class Attention(nn.Module):
     """GQA attention weights (``wq``/``wk``/``wv``/``wo`` in (d_in, d_out),
-    optional ``bq``/``bk``/``bv``) against the paged KV pool."""
+    optional ``bq``/``bk``/``bv``); :func:`attention_fwd` and
+    :func:`paged_attention_fwd` apply them."""
 
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype, device=None):
         super().__init__()
-        self.cfg = cfg
         d, h, hk, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
         self.wq = _weight((d, h * dh), dtype, device)
         self.wk = _weight((d, hk * dh), dtype, device)
@@ -137,9 +138,72 @@ class Attention(nn.Module):
         else:
             self.bq = self.bk = self.bv = None
 
-    def forward(self, x, pos2, window, kp, vp, ptab, lens, widx):
-        return paged_attention_fwd(self, self.cfg, x, pos2, window, kp, vp,
-                                   ptab, lens, widx)
+
+def _qkv(p: Attention, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
+    """Projections with bias, RoPE on q and k: (B, C, H, D), (B, C, Hkv, D) ×2."""
+    B, C, _ = x.shape
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    q = linear(p.wq, p.bq, x).reshape(B, C, H, D)
+    k = linear(p.wk, p.bk, x).reshape(B, C, Hkv, D)
+    v = linear(p.wv, p.bv, x).reshape(B, C, Hkv, D)
+    return (apply_rope(q, positions, cfg.rope_theta),
+            apply_rope(k, positions, cfg.rope_theta), v)
+
+
+def attention_fwd(p: Attention, cfg: ModelConfig, x: torch.Tensor,
+                  positions: torch.Tensor, window: Optional[int],
+                  kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                  active: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """GQA attention over a contiguous cache (the JAX ``attention_fwd``,
+    dense self-attention cases).
+
+    * full-sequence mode, ``kv_cache`` None: causal attention over x itself
+      (flash-attention kernel, window and softcap as configured).
+    * cache mode: ``kv_cache = (K, V)`` buffers (B, S_max, Hkv, D) of x's
+      batch rows.  Rows flagged in ``active`` (B,) bool (None: all) write
+      this chunk's K/V at ``positions`` in place; the others keep their
+      buffers.  Attention then runs over the buffer with
+      ``kv_len = positions[:, -1] + 1`` for active rows and 0 (zeros out)
+      otherwise — exactly the JAX mask ``_attn_mask(positions, kpos) &
+      (kpos >= 0)`` for a row whose cache holds positions ``0 .. p0-1``,
+      which the engine keeps true (a claimed slot is wiped and prefilled
+      from position 0; an installed slot must hold every earlier
+      position).  ``C == 1`` runs the contiguous decode kernel, ``C > 1``
+      the flash-attention kernel with per-row ``kv_len``.  A rolling
+      sliding-window buffer is not ported yet.
+
+    Unlike the JAX function, which returns the new buffers, the port
+    writes them in place and returns only the attention output (B, C, d).
+    """
+    B, C, _ = x.shape
+    H, D = cfg.n_heads, cfg.d_head
+    q, k, v = _qkv(p, cfg, x, positions)
+    if kv_cache is None:
+        out = fa_ops.flash_attention(q, k, v, causal=True, window=window,
+                                     softcap=cfg.attn_logit_softcap)
+        return out.reshape(B, C, H * D) @ p.wo
+    if window is not None:
+        raise NotImplementedError(
+            "a rolling sliding-window contiguous cache is not ported yet "
+            "(ROADMAP queue 1, item 7)")
+    K, V = kv_cache
+    act = (torch.ones(B, dtype=torch.bool, device=x.device) if active is None
+           else active.bool())
+    rows = torch.arange(B, device=x.device)[:, None].expand(B, C)
+    keep = act[:, None, None, None]
+    K[rows, positions] = torch.where(keep, k, K[rows, positions])
+    V[rows, positions] = torch.where(keep, v, V[rows, positions])
+    lens = torch.where(act, positions[:, -1] + 1, 0).to(torch.int32)
+    if C == 1:
+        if cfg.attn_logit_softcap is not None:
+            raise NotImplementedError("decode with an attention logit softcap "
+                                      "comes with the gemma2 slice")
+        out = fd_ops.flash_decode(q[:, 0].contiguous(), K, V, lens)[:, None]
+    else:
+        out = fa_ops.flash_attention(q, K, V, causal=True,
+                                     softcap=cfg.attn_logit_softcap,
+                                     kv_len=lens)
+    return out.reshape(B, C, H * D) @ p.wo
 
 
 def paged_attention_fwd(p: Attention, cfg: ModelConfig, x: torch.Tensor,
@@ -165,12 +229,7 @@ def paged_attention_fwd(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     B, C, _ = x.shape
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     P, page = kp.shape[0], kp.shape[1]
-
-    q = linear(p.wq, p.bq, x).reshape(B, C, H, D)
-    k = linear(p.wk, p.bk, x).reshape(B, C, Hkv, D)
-    v = linear(p.wv, p.bv, x).reshape(B, C, Hkv, D)
-    q = apply_rope(q, pos2, cfg.rope_theta)
-    k = apply_rope(k, pos2, cfg.rope_theta)
+    q, k, v = _qkv(p, cfg, x, pos2)
 
     kp.view(P * page, Hkv, D).index_copy_(0, widx, k.reshape(B * C, Hkv, D))
     vp.view(P * page, Hkv, D).index_copy_(0, widx, v.reshape(B * C, Hkv, D))

@@ -1,17 +1,36 @@
-"""Paged language model, dense subset (port of ``src/repro/models/lm.py``).
+"""Language model, dense and SSM subsets (port of ``src/repro/models/lm.py``).
 
 The JAX model is a pure function over a parameter pytree with a
-``lax.scan`` over stacked layers; here it is an ``nn.Module``
-(:class:`PagedLM`, an ``nn.ModuleList`` of :class:`DecoderLayer`) and the
-scan is a Python loop.  :func:`paged_step` keeps the JAX contract (same
-write-index prelude, same logits) but updates the page pools in place.
+``lax.scan`` over stacked layers; here it is an ``nn.Module`` (:class:`LM`,
+an ``nn.ModuleList`` of :class:`DecoderLayer` for the dense family or
+:class:`MambaLayer` for the ssm family) and the scan is a Python loop.
 Weights come from :func:`init_params` (seeded ``torch.Generator``) or from
 JAX weights through :func:`params_from_jax` (numpy in, no JAX import).
+
+Two caches, as in the JAX package:
+
+* the paged KV pool of the dense family (:func:`init_paged_cache`,
+  :func:`paged_step`);
+* the contiguous per-slot cache (:func:`init_cache`: dense ``k/v/pos``,
+  SSM ``conv/ssm``; :func:`step_with_cache`, :func:`decode_step`,
+  :func:`prefill_step`).
+
+Unlike the JAX functions, which return new caches, the steps write the
+caches in place, and only for the batch rows they are told to keep: a
+JAX-style ``torch.where`` over the whole cache would copy it every
+dispatch.  :func:`reset_slots` and :func:`mask_cache_update` keep the JAX
+semantics (new tensors); the engine uses the in-place :func:`wipe_slots_`.
+
+The migration wire format (:func:`extract_slot`, :func:`install_slot`,
+:func:`extract_paged_slot`, :func:`install_paged_slot`) is host numpy with
+the JAX keys, shapes and int32 ``pos``; bf16 leaves travel as float32
+(exact, and JAX's install casts them to its cache dtype), and JAX's bf16
+leaves are accepted by dtype name.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -19,7 +38,10 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device, working_dtype
-from repro_torch.models.layers import Attention, RMSNorm, SwiGLU, softcap
+from repro_torch.models import ssd
+from repro_torch.models.layers import (Attention, RMSNorm, SwiGLU,
+                                       attention_fwd, paged_attention_fwd,
+                                       softcap)
 
 Cache = Dict[str, torch.Tensor]
 
@@ -45,11 +67,13 @@ def paged_window(cfg: ModelConfig) -> Optional[int]:
 
 
 def _check_served(cfg: ModelConfig) -> None:
+    if cfg.family == "ssm":
+        return
     if not pageable(cfg) or cfg.family != "dense" or cfg.mla is not None:
         raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}): the port serves dense GQA configs on "
-            f"the paged path; MLA, MoE, SSM, hybrid and encoder-decoder come "
-            f"with later slices")
+            f"{cfg.name} ({cfg.family}): the port serves dense GQA and SSM "
+            f"configs; MLA, MoE, hybrid, local/global pairs and "
+            f"encoder-decoder come with later slices (ROADMAP queue 1, item 7)")
 
 
 def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
@@ -71,8 +95,10 @@ def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
 # model
 # --------------------------------------------------------------------------- #
 class DecoderLayer(nn.Module):
-    """Pre-norm decoder layer: rmsnorm → paged attention → rmsnorm → SwiGLU.
-    Its ``forward`` is the JAX ``_paged_decoder_layer_fwd`` (dense path)."""
+    """Pre-norm decoder layer: rmsnorm → attention → rmsnorm → SwiGLU.
+    ``attend(attn, h)`` applies the attention weights against whichever
+    cache the caller holds (the JAX ``_decoder_layer_fwd`` /
+    ``_paged_decoder_layer_fwd``, dense path)."""
 
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype, device=None):
         super().__init__()
@@ -81,14 +107,28 @@ class DecoderLayer(nn.Module):
         self.ln2 = RMSNorm(cfg.d_model, cfg.norm_eps, device)
         self.ffn = SwiGLU(cfg.d_model, cfg.d_ff, dtype, device)
 
-    def forward(self, x, pos2, window, kp, vp, ptab, lens, widx):
-        x = x + self.attn(self.ln1(x), pos2, window, kp, vp, ptab, lens, widx)
+    def forward(self, x, attend):
+        x = x + attend(self.attn, self.ln1(x))
         return x + self.ffn(self.ln2(x))
 
 
-class PagedLM(nn.Module):
-    """Dense decoder-only LM served from a paged KV pool.  Parameter names
-    mirror the JAX pytree (``layers.{l}.attn.wq`` ↔ ``layers/attn/wq[l]``)."""
+class MambaLayer(nn.Module):
+    """rmsnorm → Mamba-2 mixer, residual (the JAX ``_mamba_layer_fwd``)."""
+
+    def __init__(self, cfg: ModelConfig, dtype: torch.dtype, device=None):
+        super().__init__()
+        self.ln = RMSNorm(cfg.d_model, cfg.norm_eps, device)
+        self.mixer = ssd.Mamba2(cfg, dtype, device)
+
+    def forward(self, x, state=None):
+        out, new_state = self.mixer(self.ln(x), state)
+        return x + out, new_state
+
+
+class LM(nn.Module):
+    """Decoder-only LM of the dense or ssm family.  Parameter names mirror
+    the JAX pytree (``layers.{l}.attn.wq`` ↔ ``layers/attn/wq[l]``,
+    ``layers.{l}.mixer.in_proj.w`` ↔ ``layers/mixer/in_proj/w[l]``)."""
 
     def __init__(self, cfg: ModelConfig, device: DeviceLike = None):
         super().__init__()
@@ -104,7 +144,8 @@ class PagedLM(nn.Module):
             self.lm_head = nn.Parameter(
                 torch.zeros((cfg.d_model, cfg.vocab_size), dtype=dtype,
                             device=device), requires_grad=False)
-        self.layers = nn.ModuleList(DecoderLayer(cfg, dtype, device)
+        layer = MambaLayer if cfg.family == "ssm" else DecoderLayer
+        self.layers = nn.ModuleList(layer(cfg, dtype, device)
                                     for _ in range(cfg.n_layers))
 
     @property
@@ -126,16 +167,23 @@ def _init_scale(cfg: ModelConfig, name: str, shape) -> float:
 
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
-                device: DeviceLike = None) -> PagedLM:
+                device: DeviceLike = None) -> LM:
     """Fresh random weights drawn from ``generator`` (seed 0 on the CPU when
     None) in parameter order, on the generator's device, then stored on
-    ``device`` in the working dtype (norm scales in f32)."""
-    model = PagedLM(cfg, device)
+    ``device`` in the working dtype (norm scales and the mixer's vectors in
+    f32).  The Mamba-2 mixer's ``A_log``, ``D`` and ``dt_bias`` follow
+    ``init_mamba2`` (:func:`repro_torch.models.ssd.init_vector`)."""
+    model = LM(cfg, device)
     gen = generator if generator is not None else torch.Generator().manual_seed(0)
     with torch.no_grad():
         for name, p in model.named_parameters():
+            vec = None
+            if ".mixer." in name and p.dim() == 1:
+                vec = ssd.init_vector(name.rsplit(".", 1)[-1], p.shape[0], gen)
             s = _init_scale(cfg, name, p.shape)
-            if s == 0.0:
+            if vec is not None:
+                p.copy_(vec)
+            elif s == 0.0:
                 p.zero_()
             else:
                 p.copy_(torch.empty(p.shape, dtype=torch.float32,
@@ -166,11 +214,11 @@ def _flatten_jax(cfg: ModelConfig, np_params: Mapping) -> Dict[str, np.ndarray]:
 
 
 def params_from_jax(cfg: ModelConfig, np_params: Mapping,
-                    device: DeviceLike = None) -> PagedLM:
+                    device: DeviceLike = None) -> LM:
     """Build the port's model from the JAX parameter pytree given as numpy
     arrays (``jax.tree.map(np.asarray, params)``): a plain copy, since both
     keep the ``(d_in, d_out)`` layout.  Takes numpy only — no JAX import."""
-    model = PagedLM(cfg, device)
+    model = LM(cfg, device)
     flat = _flatten_jax(cfg, np_params)
     names = dict(model.named_parameters())
     if set(flat) != set(names):
@@ -193,16 +241,202 @@ def _to_torch(arr) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """Host copy for the wire format; bf16 becomes float32 (exact)."""
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.cpu().numpy()
+
+
 def paged_cache_from_numpy(cache: Mapping, device: DeviceLike = None) -> Cache:
     """JAX paged pools ``{"kp", "vp"}`` as numpy arrays → port tensors."""
     device = resolve_device(device)
     return {k: _to_torch(cache[k]).to(device) for k in ("kp", "vp")}
 
 
+def cache_from_numpy(cache: Mapping, device: DeviceLike = None) -> Cache:
+    """A JAX contiguous cache (dense ``k/v/pos`` or SSM ``conv/ssm``) as
+    numpy arrays → port tensors."""
+    device = resolve_device(device)
+    return {k: _to_torch(v).to(device) for k, v in cache.items()}
+
+
+def _logits(model: LM, cfg: ModelConfig, x: torch.Tensor,
+            last_only: bool) -> torch.Tensor:
+    """Final norm and head, f32 logits; ``last_only`` keeps the last
+    position (rows are independent, so it is normalised alone)."""
+    if last_only:
+        x = x[:, -1:].contiguous()
+    logits = (model.final_norm(x) @ model.head()).float()
+    return softcap(logits, cfg.final_logit_softcap)
+
+
+# --------------------------------------------------------------------------- #
+# full-sequence forward
+# --------------------------------------------------------------------------- #
+def forward(model: LM, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """Full-sequence forward from position 0 without a cache (the JAX
+    ``forward``, dense and ssm families). tokens (B, S) → logits (B, S, V)."""
+    B, S = tokens.shape
+    x = model.embed[tokens]
+    if cfg.family == "ssm":
+        for layer in model.layers:
+            x, _ = layer(x)
+    else:
+        positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+        for layer in model.layers:
+            x = layer(x, lambda a, h: attention_fwd(a, cfg, h, positions,
+                                                    cfg.sliding_window))
+    return _logits(model, cfg, x, last_only=False)
+
+
+# --------------------------------------------------------------------------- #
+# contiguous per-slot cache
+# --------------------------------------------------------------------------- #
+def cache_seq_len(cfg: ModelConfig, seq_len: int) -> int:
+    """Physical KV buffer length (rolling buffer for pure-SWA archs)."""
+    if cfg.sliding_window is not None and cfg.local_global_every == 0:
+        return min(cfg.sliding_window, seq_len)
+    return seq_len
+
+
+def init_cache(cfg: ModelConfig, B: int, seq_len: int,
+               dtype: Optional[torch.dtype] = None,
+               device: DeviceLike = None) -> Cache:
+    """Zero-filled contiguous cache for ``B`` slots of up to ``seq_len``
+    positions: dense ``{"k", "v"}`` (L, B, S, Hkv, D) and ``"pos"``
+    (L, B, S) int32 filled with -1; ssm ``{"conv"}`` (L, B, d_conv-1,
+    conv_dim) and ``{"ssm"}`` (L, B, h, p, n)."""
+    _check_served(cfg)
+    device = resolve_device(device)
+    dtype = working_dtype(cfg) if dtype is None else dtype
+    L = cfg.n_layers
+    if cfg.family == "ssm":
+        s = cfg.ssm
+        di = s.d_inner(cfg.d_model)
+        conv_dim = di + 2 * s.n_groups * s.d_state
+        nh = s.n_heads(cfg.d_model)
+        return {"conv": torch.zeros((L, B, s.d_conv - 1, conv_dim), dtype=dtype,
+                                    device=device),
+                "ssm": torch.zeros((L, B, nh, s.head_dim, s.d_state), dtype=dtype,
+                                   device=device)}
+    if cfg.sliding_window is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: a rolling sliding-window contiguous cache is not "
+            f"ported yet (ROADMAP queue 1, item 7); serve it paged")
+    S = cache_seq_len(cfg, seq_len)
+    shape = (L, B, S, cfg.n_kv_heads, cfg.d_head)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "pos": torch.full((L, B, S), -1, dtype=torch.int32, device=device)}
+
+
+def step_with_cache(model: LM, cfg: ModelConfig, cache: Cache,
+                    tokens: torch.Tensor, pos2: torch.Tensor, *,
+                    rows: Optional[Tuple[int, int]] = None,
+                    write: Optional[torch.Tensor] = None,
+                    last_only: bool = False) -> Tuple[torch.Tensor, Cache]:
+    """Cache-backed forward over a token chunk, contiguous cache edition.
+
+    tokens/pos2: (n, C) int for the batch rows ``rows = (lo, hi)`` of the
+    cache (None: all of them); positions run contiguously per row.  Only
+    the rows listed in ``write`` ((k,) int64 offsets into ``lo:hi``, on the
+    cache's device; None: all) keep their updates — the JAX step followed
+    by ``mask_cache_update`` — and they are written in place.  Attention
+    rows outside ``write`` attend nothing (zeros).  SSM rows continue from
+    their carried state: S == 1 runs the recurrent step, S > 1 the chunked
+    scan.  Returns logits (n, C, V) in f32, or (n, 1, V) when
+    ``last_only``, and the cache.
+    """
+    n, C = tokens.shape
+    lo, hi = (0, next(iter(cache.values())).shape[1]) if rows is None else rows
+    if hi - lo != n:
+        raise ValueError(f"rows {lo}:{hi} do not match {n} token rows")
+    dev = tokens.device
+    pos2 = pos2.long()
+    x = model.embed[tokens]
+    if cfg.family == "ssm":
+        for l, layer in enumerate(model.layers):
+            conv, ssm_st = cache["conv"][l, lo:hi], cache["ssm"][l, lo:hi]
+            x, (c2, s2) = layer(x, (conv, ssm_st))
+            if write is None:
+                conv.copy_(c2)
+                ssm_st.copy_(s2)
+            else:
+                conv.index_copy_(0, write, c2.index_select(0, write).to(conv.dtype))
+                ssm_st.index_copy_(0, write, s2.index_select(0, write).to(ssm_st.dtype))
+    else:
+        active = torch.ones(n, dtype=torch.bool, device=dev)
+        if write is not None:
+            active = torch.zeros_like(active).index_fill_(0, write, True)
+        pos = cache["pos"][:, lo:hi]                       # (L, n, S)
+        r = torch.arange(n, device=dev)[:, None].expand(n, C)
+        pos[:, r, pos2] = torch.where(active[:, None], pos2.to(pos.dtype),
+                                      pos[:, r, pos2])
+        for l, layer in enumerate(model.layers):
+            kv = (cache["k"][l, lo:hi], cache["v"][l, lo:hi])
+            x = layer(x, lambda a, h: attention_fwd(a, cfg, h, pos2, None,
+                                                    kv_cache=kv, active=active))
+    return _logits(model, cfg, x, last_only), cache
+
+
+def decode_step(model: LM, cfg: ModelConfig, cache: Cache,
+                tokens: torch.Tensor, positions: torch.Tensor
+                ) -> Tuple[torch.Tensor, Cache]:
+    """One decoding step. tokens: (B, 1); positions: (B,).  Returns
+    (logits (B, 1, V), cache updated in place)."""
+    return step_with_cache(model, cfg, cache, tokens, positions[:, None])
+
+
+def prefill_step(model: LM, cfg: ModelConfig, cache: Cache,
+                 tokens: torch.Tensor, positions: torch.Tensor
+                 ) -> Tuple[torch.Tensor, Cache]:
+    """Chunked prefill: advance C tokens against the cache in one dispatch.
+    tokens/positions: (B, C), contiguous per row.  Returns (logits
+    (B, C, V), cache updated in place)."""
+    return step_with_cache(model, cfg, cache, tokens, positions)
+
+
+def _leaf_init(name: str) -> int:
+    return -1 if name.endswith("pos") else 0
+
+
+def reset_slots(cfg: ModelConfig, cache: Cache, reset: torch.Tensor) -> Cache:
+    """JAX semantics, new tensors: the slots flagged in ``reset`` (B,) bool
+    go back to empty — position buffers to -1, KV and recurrent state to
+    zero.  A reused slot must be wiped before its first chunk: recurrent
+    state is continued unconditionally."""
+    out = {}
+    for k, leaf in cache.items():
+        m = reset.bool().reshape((1, -1) + (1,) * (leaf.dim() - 2))
+        out[k] = torch.where(m, torch.full_like(leaf, _leaf_init(k)), leaf)
+    return out
+
+
+def mask_cache_update(cfg: ModelConfig, old_cache: Cache, new_cache: Cache,
+                      active: torch.Tensor) -> Cache:
+    """JAX semantics, new tensors: keep updates only for the slots flagged
+    in ``active`` (B,) bool; inactive slots keep the old cache."""
+    out = {}
+    for k, old in old_cache.items():
+        m = active.bool().reshape((1, -1) + (1,) * (old.dim() - 2))
+        out[k] = torch.where(m, new_cache[k], old)
+    return out
+
+
+def wipe_slots_(cache: Cache, slots: Sequence[int]) -> Cache:
+    """:func:`reset_slots` in place for the listed slots."""
+    for k, leaf in cache.items():
+        for s in slots:
+            leaf[:, s].fill_(_leaf_init(k))
+    return cache
+
+
 # --------------------------------------------------------------------------- #
 # paged step
 # --------------------------------------------------------------------------- #
-def paged_step(model: PagedLM, cfg: ModelConfig, cache: Cache,
+def paged_step(model: LM, cfg: ModelConfig, cache: Cache,
                tokens: torch.Tensor, pos2: torch.Tensor, ptab: torch.Tensor,
                active: torch.Tensor, *, page_size: int,
                last_only: bool = False) -> Tuple[torch.Tensor, Cache]:
@@ -230,10 +464,190 @@ def paged_step(model: PagedLM, cfg: ModelConfig, cache: Cache,
     window = paged_window(cfg)
 
     for layer, kp, vp in zip(model.layers, cache["kp"], cache["vp"]):
-        x = layer(x, pos2, window, kp, vp, ptab, lens, widx)
+        x = layer(x, lambda a, h: paged_attention_fwd(
+            a, cfg, h, pos2, window, kp, vp, ptab, lens, widx))
+    return _logits(model, cfg, x, last_only), cache
 
-    x = model.final_norm(x)
-    if last_only:
-        x = x[:, -1:]
-    logits = (x @ model.head()).float()
-    return softcap(logits, cfg.final_logit_softcap), cache
+
+# --------------------------------------------------------------------------- #
+# per-slot cache migration (live KV/SSM state transfer across engines)
+# --------------------------------------------------------------------------- #
+class SlotMigrationError(ValueError):
+    """A slot state cannot be installed into the target cache — shape/config
+    mismatch, or the target buffers cannot hold the positions the request
+    still attends to."""
+
+
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SlotMigrationError(msg)
+
+
+def extract_slot(cfg: ModelConfig, cache: Cache, slot: int) -> Dict[str, np.ndarray]:
+    """One batch slot's KV/SSM state as a host copy: the cache dict with
+    the batch axis removed, positions absolute (the JAX wire format)."""
+    return {k: _to_numpy(leaf[:, slot]) for k, leaf in cache.items()}
+
+
+def _install_copy(dst: torch.Tensor, src) -> torch.Tensor:
+    """Position-independent state (SSM/conv recurrent state) for one slot:
+    checked against the slot view ``dst`` (L, ...), returned as a tensor
+    ready to copy in."""
+    _require(tuple(src.shape) == tuple(dst.shape),
+             f"state shape {tuple(src.shape)} != cache slot shape {tuple(dst.shape)}")
+    return _to_torch(src).to(device=dst.device, dtype=dst.dtype)
+
+
+def _install_attn(dst_leaves, src_leaves, dst_pos: torch.Tensor, src_pos,
+                  slot: int, position: int) -> None:
+    """Scatter one slot's attention entries into the target buffers by
+    absolute position, overwriting the whole slot (non-rolling buffers).
+
+    dst leaves: (N, B, S_dst, ...) sharing ``dst_pos`` (N, B, S_dst); src
+    leaves: (N, S_src, ...) host arrays sharing ``src_pos`` (N, S_src).
+    Beyond the JAX checks, every position below ``position`` must be in the
+    state: the port's kernels read a slot's first ``kv_len`` rows.
+    Everything is checked before anything is written.
+    """
+    src_pos = np.asarray(src_pos)
+    N, S_src = src_pos.shape
+    _require(dst_pos.shape[0] == N,
+             f"layer-stack mismatch: {dst_pos.shape[0]} != {N}")
+    S_dst = int(dst_pos.shape[2])
+    valid = src_pos >= 0
+    _require(position < S_dst,
+             f"next decode position {position} outside target buffer of "
+             f"length {S_dst}")
+    _require(not valid.any() or int(src_pos.max()) < S_dst,
+             f"cached position {int(src_pos.max())} outside target buffer "
+             f"of length {S_dst}")
+    have = np.zeros((N, S_dst), bool)
+    n_idx, s_idx = np.nonzero(valid)
+    d_idx = src_pos[n_idx, s_idx]
+    have[n_idx, d_idx] = True
+    _require(bool(have[:, :position].all()),
+             "state lacks positions the request still attends to")
+    for dst, src in zip(dst_leaves, src_leaves):
+        _require(tuple(src.shape[2:]) == tuple(dst.shape[3:])
+                 and src.shape[0] == N and src.shape[1] == S_src,
+                 f"attention state shape {tuple(src.shape)} incompatible "
+                 f"with cache {tuple(dst.shape)}")
+    dev = dst_pos.device
+    ni, si, di = (torch.from_numpy(a.astype(np.int64)).to(dev)
+                  for a in (n_idx, s_idx, d_idx))
+    for dst, src in zip(dst_leaves, src_leaves):
+        buf = torch.zeros((N, S_dst) + tuple(dst.shape[3:]), dtype=dst.dtype,
+                          device=dev)
+        buf[ni, di] = _to_torch(src).to(device=dev, dtype=dst.dtype)[ni, si]
+        dst[:, slot].copy_(buf)
+    posbuf = torch.full((N, S_dst), -1, dtype=torch.int32, device=dev)
+    posbuf[ni, di] = torch.from_numpy(src_pos.astype(np.int32)).to(dev)[ni, si]
+    dst_pos[:, slot].copy_(posbuf)
+
+
+def install_slot(cfg: ModelConfig, cache: Cache, slot: int, state: Mapping,
+                 position: int) -> Cache:
+    """Install an :func:`extract_slot` state (from the port or from JAX)
+    into batch slot ``slot``, in place.
+
+    ``position`` is the request's next decode position (its cache holds
+    positions < ``position``).  The whole slot is overwritten, so a previous
+    occupant can never leak through.  Raises :class:`SlotMigrationError`
+    (cache untouched) when the state cannot be represented in the target
+    cache; the caller then falls back to recompute-from-continuation.
+    """
+    try:
+        if cfg.family == "ssm":
+            conv = _install_copy(cache["conv"][:, slot], state["conv"])
+            ssm_st = _install_copy(cache["ssm"][:, slot], state["ssm"])
+            cache["conv"][:, slot].copy_(conv)
+            cache["ssm"][:, slot].copy_(ssm_st)
+            return cache
+        _require(cfg.sliding_window is None and "k" in cache,
+                 f"{cfg.name}: no contiguous dense cache to install into")
+        _install_attn([cache["k"], cache["v"]], [state["k"], state["v"]],
+                      cache["pos"], state["pos"], slot, position)
+        return cache
+    except SlotMigrationError:
+        raise
+    except (KeyError, IndexError, TypeError, ValueError, RuntimeError) as e:
+        raise SlotMigrationError(
+            f"slot state incompatible with target cache: {e}") from e
+
+
+def extract_paged_slot(cfg: ModelConfig, cache: Cache, pages: Sequence[int],
+                       position: int, page_size: int) -> Dict[str, np.ndarray]:
+    """Gather one request's pages into the *contiguous* extract format
+    (:func:`extract_slot`'s layout), so a paged export installs into either
+    a contiguous target (:func:`install_slot`) or a paged one
+    (:func:`install_paged_slot`)."""
+    idx = torch.as_tensor(list(pages), dtype=torch.long, device=cache["kp"].device)
+    S_src = len(pages) * page_size
+    ar = np.arange(S_src)
+    pos_row = np.where(ar < position, ar, -1).astype(np.int32)
+    k, v = cache["kp"][:, idx], cache["vp"][:, idx]
+    L = k.shape[0]
+    return {"k": _to_numpy(k.reshape(L, S_src, *k.shape[3:])),
+            "v": _to_numpy(v.reshape(L, S_src, *v.shape[3:])),
+            "pos": np.broadcast_to(pos_row, (L, S_src)).copy()}
+
+
+def install_paged_slot(cfg: ModelConfig, cache: Cache, pages: Sequence[int],
+                       state: Mapping, position: int, page_size: int) -> Cache:
+    """Scatter a contiguous-format slot state into freshly-owned pages, in
+    place.  ``pages[j]`` is the physical page for logical block j (0 =
+    trash for SWA blocks wholly outside the window).  Positions must be
+    layer-uniform; raises :class:`SlotMigrationError` (pools untouched)
+    when positions the request still attends to are missing from the state
+    or fall in a trash block."""
+    try:
+        src_pos = np.asarray(state["pos"])
+        L, S_src = src_pos.shape
+        dst_leaves = [cache["kp"], cache["vp"]]
+        src_leaves = [state["k"], state["v"]]
+        _require(int(dst_leaves[0].shape[0]) == L,
+                 f"layer-stack mismatch: {dst_leaves[0].shape[0]} != {L}")
+        _require(bool((src_pos == src_pos[0]).all()),
+                 "paged install requires layer-uniform cache positions")
+        sp = src_pos[0]
+        pages = list(pages)
+        n_blocks = len(pages)
+        S_buf = n_blocks * page_size
+        _require(S_buf >= position,
+                 f"{n_blocks} pages cannot hold {position} positions")
+        window = paged_window(cfg)
+        lo_req = 0 if window is None else max(position - window + 1, 0)
+        keep = (sp >= 0) & (sp < position)
+        have = np.zeros(S_buf, bool)
+        have[sp[keep]] = True
+        req = np.zeros(S_buf, bool)
+        req[lo_req:position] = True
+        for j, pid in enumerate(pages):
+            if pid == 0:
+                _require(not req[j * page_size:(j + 1) * page_size].any(),
+                         "still-visible positions mapped to the trash page")
+        _require(not (req & ~have).any(),
+                 "state lacks positions the request still attends to")
+        for dst, src in zip(dst_leaves, src_leaves):
+            _require(src.shape[0] == L and src.shape[1] == S_src
+                     and tuple(src.shape[2:]) == tuple(dst.shape[3:]),
+                     f"state shape {tuple(src.shape)} incompatible with "
+                     f"pool {tuple(dst.shape)}")
+        jsel = [j for j, pid in enumerate(pages) if pid != 0]
+        dev = dst_leaves[0].device
+        pidx = torch.as_tensor([pages[j] for j in jsel], dtype=torch.long, device=dev)
+        jidx = torch.as_tensor(jsel, dtype=torch.long, device=dev)
+        kidx = torch.from_numpy(np.flatnonzero(keep)).to(dev)
+        didx = torch.from_numpy(sp[keep].astype(np.int64)).to(dev)
+        for dst, src in zip(dst_leaves, src_leaves):
+            buf = torch.zeros((L, S_buf) + tuple(dst.shape[3:]), dtype=dst.dtype,
+                              device=dev)
+            buf[:, didx] = _to_torch(src).to(device=dev, dtype=dst.dtype)[:, kidx]
+            blocks = buf.reshape(L, n_blocks, page_size, *buf.shape[2:])
+            dst[:, pidx] = blocks[:, jidx]
+        return cache
+    except SlotMigrationError:
+        raise
+    except (KeyError, IndexError, TypeError, ValueError, RuntimeError) as e:
+        raise SlotMigrationError(
+            f"slot state incompatible with paged pool: {e}") from e

@@ -2,7 +2,7 @@
 
 :class:`TorchBackend` is the counterpart of ``JaxBackend``: a real
 multi-replica :class:`~repro_torch.serving.pool.EnginePool` over the port's
-paged engines.  ``apply_plan`` measures the rebuild wall-clock and
+engines (paged for pageable families, contiguous otherwise).  ``apply_plan`` measures the rebuild wall-clock and
 ``serve_interval`` runs real requests and measures TTFT/TPOT/tok/s, so the
 two-plane runtime's ``DataPlane`` drives it exactly like the JAX backend
 (it satisfies the same ``Backend`` protocol by duck typing).
@@ -98,7 +98,7 @@ class TorchBackend:
     backend does there (its allocator is off with one device).
     """
     cfg: ModelConfig
-    params: lm.PagedLM
+    params: lm.LM
     max_seq_len: int = 96
     slots_cap: int = 8
     max_replicas_per_group: int = 2

@@ -1,24 +1,28 @@
-"""Continuous-batching paged serving engine (port of ``src/repro/serving/engine.py``).
+"""Continuous-batching serving engine (port of ``src/repro/serving/engine.py``).
 
-The engine keeps a fixed set of decode slots over a block-paged KV pool
-shared by the slots.  Each step:
-  1. admits waiting requests into free slots: a resident prompt prefix is
-     mapped copy-free from the prefix index, the rest is prefilled in
-     power-of-two chunks, one dispatch each;
+The engine keeps a fixed set of decode slots over one of two caches: a
+block-paged KV pool shared by the slots (the default for pageable
+families), or a contiguous per-slot cache (``paged=False``, and every
+non-pageable family such as SSM).  Each step:
+  1. admits waiting requests into free slots: on the paged path a resident
+     prompt prefix is mapped copy-free from the prefix index; the rest is
+     prefilled in power-of-two chunks, one dispatch each, and a contiguous
+     slot is wiped of its previous occupant in the first chunk's dispatch;
   2. runs one batched decode dispatch for all active slots (inputs are
      assembled in NumPy and shipped to the device once);
   3. retires finished requests (EOS / max tokens), offering their full pages
      to the prefix index.
 
-This slice ports the paged path only.  ``paged=False`` (the contiguous
-per-slot cache), a non-pageable config, and live slot migration come with
-later slices and raise ``NotImplementedError``.
+Live slot migration: :meth:`Engine.export_slot` packs a slot's cache in the
+contiguous wire format (a paged slot's pages gathered into it) and
+:meth:`Engine.install_active` adopts such a state into a free slot of
+either cache kind, without re-prefill.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field, replace
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -99,12 +103,20 @@ class RequestState:
 
 @dataclass
 class SlotExport:
-    """One active slot popped for hand-off: ``request`` is the continuation
-    (prompt + tokens generated so far, remaining budget, accounting carry)
-    any engine can re-prefill; ``state`` is the live RequestState.  The port
-    exports for recompute only, so there is no cache state."""
+    """One active slot packed for migration (:meth:`Engine.export_active`).
+
+    ``request`` is the continuation — prompt + tokens generated so far,
+    remaining budget, accounting carry — that any engine can re-prefill.
+    ``cache`` is the extracted state in the contiguous wire format
+    (:func:`repro_torch.models.lm.extract_slot`), with which a compatible
+    engine resumes decoding in place; ``state`` is the live RequestState
+    (its ``slot`` is stale until re-installed).
+    """
     request: Request
     state: RequestState
+    cfg: ModelConfig
+    cache: Optional[Dict[str, np.ndarray]]   # None when exported for recompute only
+    position: int
 
 
 class RequestSchedulingMixin:
@@ -216,14 +228,17 @@ class RequestSchedulingMixin:
 
 
 class Engine(RequestSchedulingMixin):
-    """Paged continuous-batching engine over a :class:`~repro_torch.models.lm.PagedLM`.
+    """Continuous-batching engine over a :class:`~repro_torch.models.lm.LM`.
 
     ``params`` is the model module; it must live on ``device`` (default:
-    the CUDA card — without one the constructor raises).
+    the CUDA card — without one the constructor raises).  ``paged=None``
+    picks the paged pool for pageable families and the contiguous cache
+    otherwise.
     """
 
-    def __init__(self, cfg: ModelConfig, params: lm.PagedLM, n_slots: int = 4,
-                 max_seq_len: int = 256, max_prefill_chunk: int = 64,
+    def __init__(self, cfg: ModelConfig, params: lm.LM, n_slots: int = 4,
+                 max_seq_len: int = 256, chunked_prefill: bool = True,
+                 max_prefill_chunk: int = 64,
                  truncate_long_prompts: bool = True,
                  request_policy: Optional[RequestPolicy] = None,
                  paged: Optional[bool] = None, page_size: int = 16,
@@ -231,11 +246,11 @@ class Engine(RequestSchedulingMixin):
                  kv_cache_policy: Optional[KVCachePolicy] = None,
                  device: DeviceLike = None):
         self.device = resolve_device(device)
-        if paged is False or not lm.pageable(cfg):
-            raise NotImplementedError(
-                f"{cfg.name}: the contiguous per-slot KV cache (paged=False, "
-                f"or a non-pageable family) comes with the contiguous-cache "
-                f"slice; this slice serves the paged path only")
+        if paged is None:
+            paged = lm.pageable(cfg)             # the default serving path
+        elif paged and not lm.pageable(cfg):
+            raise ValueError(f"family {cfg.family!r} cannot use the paged "
+                             f"KV cache (recurrent/xattn/paired state)")
         if params.device != self.device:
             raise ValueError(f"model lives on {params.device}, engine on "
                              f"{self.device}")
@@ -243,6 +258,7 @@ class Engine(RequestSchedulingMixin):
         self.params = params
         self.n_slots = n_slots
         self.max_seq_len = max_seq_len
+        self.chunked_prefill = chunked_prefill
         self.truncate_long_prompts = truncate_long_prompts
         self.request_policy = request_policy
         self.kv_cache_policy = kv_cache_policy
@@ -251,15 +267,20 @@ class Engine(RequestSchedulingMixin):
         self.breaker = None          # installed by the owning pool
         self.step_ema_s = 0.0
         self.health_samples = 0
-        self.paged = True
+        self.paged = bool(paged)
         self.page_size = page_size
-        self.prefix_cache_enabled = prefix_cache
+        self.prefix_cache_enabled = self.paged and prefix_cache
         self.waiting: List[Request] = []
         self.active: Dict[int, RequestState] = {}       # slot -> state
         self.finished: List[RequestState] = []
         self.steps = 0
         self.dispatches = 0          # model-step invocations (perf metric)
 
+        if not self.paged:
+            self._chunk_sizes = self._allowed_chunk_sizes(max_prefill_chunk)
+            self.cache = lm.init_cache(cfg, n_slots, max_seq_len,
+                                       device=self.device)
+            return
         pps = -(-max_seq_len // page_size)          # ceil
         self._pages_per_slot = pps
         if n_pages is None:
@@ -275,10 +296,20 @@ class Engine(RequestSchedulingMixin):
         self._chunk_sizes = tuple(c for c in _CHUNK_CANDIDATES
                                   if c <= max(max_prefill_chunk, 1)) or (1,)
 
-    def _exec(self, tokens: np.ndarray, positions: np.ndarray,
-              active: np.ndarray) -> torch.Tensor:
-        """One model dispatch; returns the greedy next token per lane as a
-        device tensor (the caller fetches it when it needs the value)."""
+    def _allowed_chunk_sizes(self, cap: int) -> Tuple[int, ...]:
+        """Power-of-two chunk sizes of the contiguous path: a chunk longer
+        than the SSD scan's chunk must be a multiple of it.  (The JAX rule
+        also bounds chunks by a rolling sliding-window ring, a cache the
+        port does not have yet.)"""
+        ssd_chunk = self.cfg.ssm.chunk_size if self.cfg.ssm is not None else 0
+        return tuple(c for c in _CHUNK_CANDIDATES
+                     if c <= max(cap, 1)
+                     and not (ssd_chunk and c > ssd_chunk and c % ssd_chunk)) or (1,)
+
+    def _paged_exec(self, tokens: np.ndarray, positions: np.ndarray,
+                    active: np.ndarray) -> torch.Tensor:
+        """One paged model dispatch; returns the greedy next token per lane
+        as a device tensor (the caller fetches it when it needs the value)."""
         dev = self.device
         with torch.inference_mode():
             logits, _ = lm.paged_step(
@@ -288,6 +319,27 @@ class Engine(RequestSchedulingMixin):
                 torch.from_numpy(self._ptab).to(dev),
                 torch.from_numpy(active).to(dev),
                 page_size=self.page_size, last_only=True)
+            next_tok = torch.argmax(logits[:, -1, :], dim=-1)
+        self.dispatches += 1
+        return next_tok
+
+    def _contig_exec(self, tokens: np.ndarray, positions: np.ndarray,
+                     rows: Optional[Tuple[int, int]] = None,
+                     write: Optional[np.ndarray] = None,
+                     reset: Sequence[int] = ()) -> torch.Tensor:
+        """One contiguous-cache dispatch over slots ``rows`` (None: all):
+        wipe the ``reset`` slots, step, keep the updates of the ``write``
+        rows (None: all).  Returns the greedy next token per row as a
+        device tensor."""
+        dev = self.device
+        with torch.inference_mode():
+            lm.wipe_slots_(self.cache, reset)
+            logits, _ = lm.step_with_cache(
+                self.params, self.cfg, self.cache,
+                torch.from_numpy(tokens).to(dev),
+                torch.from_numpy(positions).to(dev), rows=rows,
+                write=None if write is None else torch.from_numpy(write).to(dev),
+                last_only=True)
             next_tok = torch.argmax(logits[:, -1, :], dim=-1)
         self.dispatches += 1
         return next_tok
@@ -323,11 +375,11 @@ class Engine(RequestSchedulingMixin):
     # ------------------------------------------------------------------ #
     @property
     def prefix_hits(self) -> int:
-        return self.prefix_index.hits
+        return self.prefix_index.hits if self.paged else 0
 
     @property
     def prefix_tokens_saved(self) -> int:
-        return self.prefix_index.tokens_matched
+        return self.prefix_index.tokens_matched if self.paged else 0
 
     def _kv_ctx(self, node=None, prefix_pages: int = 0,
                 prompt_len: int = 0, now: float = 0.0) -> kvcache.KVCacheCtx:
@@ -427,19 +479,23 @@ class Engine(RequestSchedulingMixin):
         self._ptab[slot, :] = 0
 
     def _on_slot_released(self, slot: int, st: RequestState) -> None:
-        self._release_pages(slot, st)
+        if self.paged:
+            self._release_pages(slot, st)
 
     def _retire(self, slot: int, st: RequestState) -> None:
         st.done = True
         st.finish_time = time.monotonic()
         self.finished.append(st)
         del self.active[slot]
-        self._release_pages(slot, st)
+        if self.paged:
+            self._release_pages(slot, st)
 
     def release_all_pages(self) -> int:
         """Drop every page reference this engine holds — active slots and
         retained prefix nodes.  Returns the pool's remaining used pages
-        (0 means no leak)."""
+        (0 means no leak; always 0 for a contiguous engine)."""
+        if not self.paged:
+            return 0
         for slot in list(self._slot_pages):
             for pid in self._slot_pages.pop(slot):
                 self.page_pool.unref(pid)
@@ -453,13 +509,21 @@ class Engine(RequestSchedulingMixin):
                 self.page_pool.unref(leaf.page)
         return self.page_pool.used_pages
 
-    def export_slot(self, slot: int, with_state: bool = True) -> SlotExport:
-        """Pop one active request out of its slot as a continuation for
-        recompute.  Exporting the KV state itself (``with_state=True``,
-        live migration) comes with the migration slice."""
-        if with_state:
-            raise NotImplementedError("live slot migration (KV state export) "
-                                      "comes with the migration slice")
+    # ------------------------------------------------------------------ #
+    # live slot migration (cache-state transfer across engines)
+    # ------------------------------------------------------------------ #
+    def export_slot(self, slot: int, with_state: bool = True,
+                    release: bool = True) -> SlotExport:
+        """Pop one active request out of its slot, packed for migration.
+
+        ``with_state=False`` skips the device→host cache copy when the
+        caller already knows it will recompute.  A paged slot's pages are
+        gathered into the contiguous wire format.  ``release=False`` keeps
+        them mapped until :meth:`release_exported`, so a hand-off that falls
+        through to draining in place (``active[slot] = export.state``)
+        still decodes from its own pages (the JAX engine releases them at
+        once, and such a drain then finds no pages for its next write).
+        """
         st = self.active.pop(slot)
         req = st.request
         remaining = max(req.max_new_tokens - len(st.generated), 1)
@@ -467,8 +531,84 @@ class Engine(RequestSchedulingMixin):
                        remaining, req.eos_id, req.arrival_time,
                        first_token_time=st.first_token_time,
                        prior_generated=st.prior_generated + len(st.generated))
-        self._release_pages(slot, st)
-        return SlotExport(cont, st)
+        cache = None
+        if self.paged:
+            if with_state:
+                cache = lm.extract_paged_slot(self.cfg, self.cache,
+                                              self._slot_pages[slot],
+                                              st.position, self.page_size)
+            if release:
+                self._release_pages(slot, st)
+        elif with_state:
+            cache = lm.extract_slot(self.cfg, self.cache, slot)
+        return SlotExport(cont, st, self.cfg, cache, st.position)
+
+    def release_exported(self, slot: int, st: RequestState) -> None:
+        """Return the pages ``export_slot(slot, release=False)`` kept
+        mapped, once the request ``st`` lives elsewhere."""
+        if self.paged:
+            self._release_pages(slot, st)
+
+    def export_active(self, with_state: bool = True) -> List[SlotExport]:
+        """Export every in-flight request (lowest slot first)."""
+        return [self.export_slot(s, with_state=with_state)
+                for s in sorted(self.active)]
+
+    def install_active(self, export: SlotExport) -> bool:
+        """Adopt a migrated slot directly into a free slot — no re-prefill.
+
+        Returns False (engine unchanged) when the state cannot live here:
+        no free slot, different model config, not enough decode headroom for
+        the remaining budget (step()'s position guard would cut the request
+        short), or buffers the extracted state cannot be scattered into.
+        Callers then fall back to resubmitting ``export.request``.
+        """
+        free = self.free_slots()
+        remaining = max(export.request.max_new_tokens, 1)
+        if (not free or export.cache is None or export.cfg != self.cfg
+                or export.position + remaining >= self.max_seq_len):
+            return False
+        slot = free[0]
+        if self.paged:
+            return self._install_paged(export, slot)
+        try:
+            lm.install_slot(self.cfg, self.cache, slot, export.cache,
+                            export.position)
+        except lm.SlotMigrationError:
+            return False
+        st = export.state
+        st.slot = slot
+        self.active[slot] = st
+        return True
+
+    def _install_paged(self, export: SlotExport, slot: int) -> bool:
+        """Adopt a migrated slot into freshly-owned pages.  SWA blocks wholly
+        below the attention window map the trash page."""
+        page = self.page_size
+        position = export.position
+        window = lm.paged_window(self.cfg)
+        lo_req = 0 if window is None else max(position - window + 1, 0)
+        n_blocks = -(-position // page)
+        pages: List[int] = []
+        try:
+            for j in range(n_blocks):
+                if (j + 1) * page <= lo_req:
+                    pages.append(kvcache.TRASH_PAGE)
+                else:
+                    pages.append(self._alloc_page())
+            lm.install_paged_slot(self.cfg, self.cache, pages, export.cache,
+                                  position, page)
+        except (lm.SlotMigrationError, RuntimeError):
+            for pid in pages:
+                self.page_pool.unref(pid)
+            return False
+        self._slot_pages[slot] = pages
+        self._ptab[slot, :] = 0
+        self._ptab[slot, :len(pages)] = pages
+        st = export.state
+        st.slot = slot
+        self.active[slot] = st
+        return True
 
     # ------------------------------------------------------------------ #
     def _prefill_into_slot(self, req: Request, slot: int) -> None:
@@ -477,12 +617,55 @@ class Engine(RequestSchedulingMixin):
         st = RequestState(req, slot)
         self.active[slot] = st
         prompt = req.prompt or [0]
-        last = self._paged_prefill(st, prompt)
+        if self.paged:
+            last = self._paged_prefill(st, prompt)
+        elif not self.chunked_prefill:
+            last = 0
+            for i, tok in enumerate(prompt):
+                last = self._advance_slot(st, tok, wipe_slot=(i == 0))
+                st.prefill_dispatches += 1
+        else:
+            last = self._prefill_chunks(st, prompt)
         st.generated.append(last)
         st.first_token_time = time.monotonic()
         if req.first_token_time is not None:
             st.first_token_time = req.first_token_time
         st.prior_generated = req.prior_generated
+
+    def _prefill_chunks(self, st: RequestState, prompt: List[int]) -> int:
+        """Contiguous prefill in descending power-of-two chunks, one
+        dispatch each over the slot's row only (rows are independent); the
+        first chunk wipes the slot's previous occupant."""
+        slot = st.slot
+        prompt_arr = np.asarray(prompt, np.int32)
+        off, last = 0, None
+        remaining = len(prompt)
+        for c in self._chunk_sizes:
+            while remaining >= c:
+                last = self._contig_exec(
+                    prompt_arr[None, off:off + c],
+                    np.arange(off, off + c, dtype=np.int32)[None],
+                    rows=(slot, slot + 1), reset=(slot,) if off == 0 else ())
+                st.prefill_dispatches += 1
+                off += c
+                remaining -= c
+        st.position = off
+        return int(last[0])                 # device → host once, after the loop
+
+    def _advance_slot(self, st: RequestState, token: int,
+                      wipe_slot: bool = False) -> int:
+        """Per-token prefill (``chunked_prefill=False``): one all-slot
+        dispatch per prompt token that keeps only this slot's update."""
+        tokens = np.zeros((self.n_slots, 1), np.int32)
+        tokens[st.slot, 0] = token
+        positions = np.zeros((self.n_slots, 1), np.int32)
+        for slot, s in self.active.items():
+            positions[slot, 0] = s.position
+        next_tok = self._contig_exec(tokens, positions,
+                                     write=np.array([st.slot], np.int64),
+                                     reset=(st.slot,) if wipe_slot else ())
+        st.position += 1
+        return int(next_tok[st.slot])
 
     def _paged_prefill(self, st: RequestState, prompt: List[int]) -> int:
         """Prefill into pages.  A resident prompt prefix (full pages, capped
@@ -505,14 +688,14 @@ class Engine(RequestSchedulingMixin):
         active[slot] = True
         off, last = matched, None
         remaining = len(prompt) - matched
-        for c in self._chunk_sizes:
+        for c in (self._chunk_sizes if self.chunked_prefill else (1,)):
             while remaining >= c:
                 self._ensure_pages(slot, off + c)
                 tokens = np.zeros((self.n_slots, c), np.int32)
                 positions = np.zeros((self.n_slots, c), np.int32)
                 tokens[slot] = prompt_arr[off:off + c]
                 positions[slot] = np.arange(off, off + c, dtype=np.int32)
-                last = self._exec(tokens, positions, active)
+                last = self._paged_exec(tokens, positions, active)
                 st.prefill_dispatches += 1
                 off += c
                 remaining -= c
@@ -544,9 +727,14 @@ class Engine(RequestSchedulingMixin):
             positions[slot, 0] = st.position
             active[slot] = True
             live.append(st)
-        for st in live:                      # map the block this write lands in
-            self._ensure_pages(st.slot, st.position + 1)
-        next_np = self._exec(tokens, positions, active).cpu().numpy()
+        if self.paged:
+            for st in live:                  # map the block this write lands in
+                self._ensure_pages(st.slot, st.position + 1)
+            next_tok = self._paged_exec(tokens, positions, active)
+        else:
+            next_tok = self._contig_exec(tokens, positions,
+                                         write=np.flatnonzero(active))
+        next_np = next_tok.cpu().numpy()     # one device→host transfer
         produced = 0
         for st in live:
             tok = int(next_np[st.slot])

@@ -4,15 +4,17 @@ A serving :class:`~repro_torch.core.plan.Plan` assigns each model a set of
 :class:`~repro_torch.core.plan.ReplicaGroup` s.  The pool materialises every
 group as :class:`~repro_torch.serving.engine.Engine` replicas and, on each
 new plan, diffs against the current one: unchanged groups keep their
-engines; changed/new groups are (re)built (page-pool allocation is the
-measured RECONFIG-COST); removed groups hand off their work — queued
-requests are requeued onto survivors, and each in-flight request is
-**drained** (finishes on the old replica, blocking the reconfiguration) or
-**recomputed** (a continuation is requeued) per the reconfig policy.
+engines; changed/new groups are (re)built (cache allocation is the measured
+RECONFIG-COST); removed groups hand off their work — queued requests are
+requeued onto survivors, and each in-flight request is **migrated** (its
+cache state moves to a survivor's free slot, no re-prefill), **drained**
+(finishes on the old replica, blocking the reconfiguration) or
+**recomputed** (a continuation is requeued) per the reconfig policy, with
+the fallbacks migrate → recompute → drain.
 
-Requests are routed per model to the least-loaded replica.  Live migration
-(``migrate``) and failure recovery (``fail``) come with later slices and
-raise ``NotImplementedError``.
+Requests are routed per model to the least-loaded replica.  Failure
+recovery (``fail``) comes with a later slice and raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -149,7 +151,8 @@ class EnginePool:
 
     def reconfigure(self, plan: Plan) -> PoolDiff:
         """Apply a new plan; rebuild only what changed.  Measured wall-clock
-        covers the in-flight hand-off (recompute/drain) and the build."""
+        covers the in-flight hand-off (migrate/recompute/drain) and the
+        build."""
         t0 = time.monotonic()
         new_groups = set(plan.groups)
         old_groups = set(self._replicas)
@@ -183,8 +186,8 @@ class EnginePool:
         if build_first:
             build_added()
 
-        drained = recomputed = 0
-        drain_s = 0.0
+        drained = migrated = recomputed = 0
+        migrate_s = drain_s = 0.0
         requeue: List[Tuple[str, Request]] = []
         for g in sorted(removed, key=repr):   # deterministic teardown order
             survivors = [e for gg, engines in self._replicas.items()
@@ -212,15 +215,32 @@ class EnginePool:
                     mode = self._migration_mode(eng, st)
                     if mode == "drain":
                         continue
-                    if mode == "migrate":
-                        raise NotImplementedError(
-                            "live migration on reconfigure comes with the "
-                            "migration slice")
-                    export = eng.export_slot(slot, with_state=False)
-                    if route_continuation(export.request):
-                        recomputed += 1
-                    else:            # fits nowhere: drain in place
-                        eng.active[slot] = export.state
+                    # the slot's pages stay mapped until the request lives
+                    # elsewhere, so a fall-through drain decodes from them
+                    if mode == "migrate" and any(e.free_slots()
+                                                 for e in survivors):
+                        t1 = time.monotonic()
+                        export = eng.export_slot(slot, release=False)
+                        ok = any(tgt.install_active(export) for tgt in sorted(
+                            (e for e in survivors if e.free_slots()),
+                            key=lambda e: e.load / max(e.n_slots, 1)))
+                        migrate_s += time.monotonic() - t1
+                        if ok:
+                            migrated += 1
+                        elif route_continuation(export.request):
+                            recomputed += 1     # incompatible target
+                        else:            # nowhere it fits losslessly: drain
+                            eng.active[slot] = export.state
+                            continue
+                    else:                # recompute (or migrate w/o a slot)
+                        export = eng.export_slot(slot, with_state=False,
+                                                 release=False)
+                        if route_continuation(export.request):
+                            recomputed += 1
+                        else:            # fits nowhere: drain in place
+                            eng.active[slot] = export.state
+                            continue
+                    eng.release_exported(slot, st)
                 if eng.active:
                     t1 = time.monotonic()
                     eng.run_until_drained()
@@ -245,8 +265,9 @@ class EnginePool:
                         removed=tuple(sorted(removed, key=repr)),
                         drained_requests=drained,
                         wall_s=time.monotonic() - t0,
+                        migrated_requests=migrated,
                         recomputed_requests=recomputed,
-                        drain_wall_s=drain_s)
+                        migrate_wall_s=migrate_s, drain_wall_s=drain_s)
 
     # ------------------------------------------------------------------ #
     def add_backlog(self, model: str, req: Request) -> None:

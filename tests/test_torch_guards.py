@@ -2,6 +2,7 @@
 its entry points never fall back to the CPU when no card is present, and
 its kernel modules import on a host without ``triton`` or ``nvcc``."""
 import ast
+import dataclasses
 import subprocess
 import sys
 from pathlib import Path
@@ -129,11 +130,14 @@ def test_ops_route_only_cpu_and_cuda():
 def test_unported_paths_raise_not_implemented():
     cfg = get_config("qwen2-1.5b").reduced()
     model = lm.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="contiguous"):
-        Engine(cfg, model, paged=False, device="cpu")
+    swa = dataclasses.replace(cfg, sliding_window=16)
+    with pytest.raises(NotImplementedError, match="rolling sliding-window"):
+        Engine(swa, lm.init_params(swa, device="cpu"), paged=False, device="cpu")
+    hybrid = dataclasses.replace(get_config("mamba2-1.3b").reduced(),
+                                 family="hybrid", attn_every=2)
+    with pytest.raises(NotImplementedError, match="hybrid"):
+        lm.init_params(hybrid, device="cpu")
     eng = Engine(cfg, model, n_slots=1, max_seq_len=32, device="cpu")
-    with pytest.raises(NotImplementedError, match="migration"):
-        eng.export_slot(0, with_state=True)
     backend = TorchBackend(cfg, model, device="cpu")
     with pytest.raises(NotImplementedError, match="faults"):
         backend.pool.fail(eng)
@@ -148,7 +152,7 @@ def test_cuda_build_is_keyed_by_source_and_headers(tmp_path, monkeypatch):
     the checkout's build directory, so an edited kernel is rebuilt."""
     assert build.BUILD_DIR == ROOT / "build" / "repro_torch_kernels"
     assert build.TRITON_HOME.parent == ROOT / "build"
-    for name in ("paged_flash_decode", "flash_attention"):
+    for name in ("paged_flash_decode", "flash_attention", "ssd_scan"):
         assert (build.CSRC / f"{name}.cu").exists()
     csrc = tmp_path / "csrc"
     csrc.mkdir()
@@ -179,7 +183,8 @@ def test_kernel_modules_import_without_triton_or_nvcc(tmp_path):
             "from repro_torch.kernels.rmsnorm import ops, kernel\n"
             "from repro_torch.kernels.flash_decode import ops, kernel\n"
             "from repro_torch.kernels.flash_attention import ops, kernel\n"
-            "import repro_torch.models.lm\n")
+            "from repro_torch.kernels.ssd_scan import ops, kernel\n"
+            "import repro_torch.models.lm, repro_torch.models.ssd\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          env={"PYTHONPATH": str(ROOT / "src"),
                               "PATH": str(tmp_path),

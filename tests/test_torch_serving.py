@@ -181,13 +181,13 @@ def test_drain_and_recompute_reconfigure(zoo):
     g2 = ReplicaGroup("m", "H100-80G", 1, 2, 1)
     prompts = [[1 + (r + j) % 9 for j in range(10)] for r in range(4)]
 
-    def run(policy):
+    def run(policy, target=g2):
         backend.apply_plan(Plan((g1,)), None)
         backend.set_reconfig_policy(policy)
         for r, p in enumerate(prompts):
             backend.pool.submit("m", TRequest(rid=r, prompt=list(p), max_new_tokens=5))
         backend.pool.engines[0].step()
-        rep = backend.apply_plan(Plan((g2,)), None)
+        rep = backend.apply_plan(Plan((target,)), None)
         backend.pool.run_until_drained()
         # a continuation's prompt carries the tokens of its earlier life
         out = {d.request.rid: d.request.prompt[len(prompts[d.request.rid]):]
@@ -202,8 +202,12 @@ def test_drain_and_recompute_reconfigure(zoo):
     assert rep_r.recomputed_requests == 4 and rep_r.drained_requests == 0
     assert recomputed == drained          # recompute resumes greedy exactly
     assert all(len(t) == 5 for t in drained.values())
-    with pytest.raises(NotImplementedError):
-        run(ReconfigPolicy(lambda m: "migrate"))
+    # a 4-slot target (count 2, capped at one replica) takes all 4 slots
+    rep_m, migrated = run(ReconfigPolicy(lambda m: "migrate"),
+                          ReplicaGroup("m", "H100-80G", 1, 4, 2))
+    assert rep_m.migrated_requests == 4 and rep_m.drained_requests == 0
+    assert rep_m.migrate_wall_s > 0.0
+    assert migrated == drained            # live migration resumes greedy exactly
 
 
 def test_serve_main_runs_on_cpu(capsys):
