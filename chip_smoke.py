@@ -24,9 +24,12 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      4d. a ``migrate`` resize with requests in flight: paged → paged and
          contiguous → paged qwen2-1.5b, contiguous → contiguous mamba2-1.3b,
          tokens held to the same requests served undisturbed;
+     4e. mixtral-8x7b (8 of 32 layers, bf16) on the paged pool through
+         ``TorchBackend``, 1 replica × 8 slots, once per MoE implementation
+         (dense mix, capacity dispatch);
   5. the port on the card (bf16, kernels) against the port on the CPU (f32,
      plain versions) for one prefill chunk and 8 decode steps, 2 layers at
-     full width, for qwen2-1.5b and mamba2-1.3b;
+     full width, for qwen2-1.5b, mamba2-1.3b and mixtral-8x7b;
   6. the kernels' JSON line, the card line, and the final JSON line.
 It imports nothing of JAX or the JAX package.
 """
@@ -45,7 +48,8 @@ ROOT = Path(__file__).resolve().parent
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3, bytes/s (NVIDIA data sheet)
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, per type
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}
-SOURCES = ("paged_flash_decode", "flash_attention", "ssd_scan")
+SOURCES = ("paged_flash_decode", "flash_attention", "ssd_scan", "moe_gmm")
+MOE_TOL = {"bfloat16": 2e-2, "float32": 3e-4}    # tests/test_kernels.py's moe_gmm
 
 
 def need(cond: bool, msg: str) -> None:
@@ -69,7 +73,8 @@ def ptxas_summary(log: str):
         if m:
             mangled = m.group(1)
             base = re.search(r"(decode_split_kernel|decode_combine_kernel|"
-                             r"flash_attention_kernel|ssd_scan_kernel)", mangled)
+                             r"flash_attention_kernel|ssd_scan_kernel|"
+                             r"moe_gmm_kernel)", mangled)
             dtype = "bf16" if "nv_bfloat16" in mangled else "f32"
             ints = ", ".join(re.findall(r"Li(\d+)E", mangled))
             contig = (", contiguous" if re.search(r"Lb1E", mangled) else
@@ -103,11 +108,12 @@ def time_ms(torch, fn, n_inputs: int, iters: int = 40, warmup: int = 3) -> float
     return start.elapsed_time(end) / iters
 
 
-def max_err(torch, got, want, dtype: str) -> float:
-    """Max |got − want|; raises if any element exceeds atol + rtol·|want|."""
+def max_err(torch, got, want, dtype: str, tol=None) -> float:
+    """Max |got − want|; raises if any element exceeds atol + rtol·|want|
+    (``tol``, or the type's default)."""
     g, w = got.float(), want.float()
     diff = (g - w).abs()
-    tol = TOL[dtype]
+    tol = TOL[dtype] if tol is None else tol
     bad = int((diff > tol + tol * w.abs()).sum())
     need(bad == 0 and bool(torch.isfinite(g).all()),
          f"{bad} elements beyond tolerance {tol} (max err {float(diff.max())})")
@@ -349,7 +355,86 @@ def check_kernels(torch):
           f"{b_ms:.5f} ms by {b_by}); at b=8 s=1024: {ms_big:.4f} ms; library: "
           f"none (no single PyTorch call computes the SSD scan with its state); "
           f"grid {SH}×{b} blocks")
+    rows["moe_gmm"], rows["moe_gmm_shapes"] = check_moe_gmm(torch, gen)
     return rows
+
+
+def check_moe_gmm(torch, gen):
+    """The grouped SwiGLU at mixtral-8x7b's expert widths, at the four token
+    counts per expert that the serving phase gives it: C 8 (dense decode, 8
+    lanes, x shared by the experts), 3 (dispatch decode: ceil(8·2/8·1.25)),
+    160 (dispatch prefill: 8 rows × ceil(64·2/8·1.25)) and 512 (dense
+    prefill: 8 lanes × 64, x shared)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.moe_gmm import kernel as moe_k, ref as moe_r
+
+    dev = torch.device("cuda")
+    E, D, FF = 8, 4096, 14336
+    shapes = ((8, True), (3, False), (160, False), (512, True))
+    dt_of = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+    def weights(dt):       # init_moe's uniform ±1/√d_in, drawn in f32
+        return [torch.empty(shape, device=dev).uniform_(-s, s, generator=gen).to(dt_of[dt])
+                for shape, s in (((E, D, FF), D ** -0.5), ((E, D, FF), D ** -0.5),
+                                 ((E, FF, D), FF ** -0.5))]
+
+    def tokens(C, shared, dt):
+        x = torch.randn((1 if shared else E, C, D), device=dev, generator=gen)
+        x = x.to(dt_of[dt])
+        return x.expand(E, C, D) if shared else x
+
+    def label(C, shared):
+        return f"E={E} C={C} D={D} F={FF} " + (
+            "x shared by the experts (stride 0)" if shared else "x per expert")
+
+    errs, timed = [], {}
+    for dt in ("float32", "bfloat16"):
+        w = weights(dt)
+        for C, shared in shapes:
+            x = tokens(C, shared, dt)
+            e = max_err(torch, moe_k.moe_gmm(x, *w), moe_r.moe_gmm_ref(x, *w), dt,
+                        MOE_TOL[dt])
+            print(f"[kernels] moe_gmm {dt} {label(C, shared)} max_abs_err={e:.3e} "
+                  f"(tol {MOE_TOL[dt]})")
+            if dt == "bfloat16":
+                errs.append(e)
+        if dt == "float32":
+            del w
+            torch.cuda.empty_cache()
+    # bf16 timings: the weights (2.82 GB) are far larger than L2, so every
+    # call reads them cold
+    for C, shared in shapes:
+        x = tokens(C, shared, "bfloat16")
+
+        def chain(i, x=x):
+            h = F.silu(torch.bmm(x, w[0])) * torch.bmm(x, w[1])
+            return torch.bmm(h, w[2])
+
+        ms = time_ms(torch, lambda i: moe_k.moe_gmm(x, *w), 1, iters=20)
+        plain = time_ms(torch, lambda i: moe_r.moe_gmm_ref(x, *w), 1, iters=20)
+        chain_ms = time_ms(torch, chain, 1, iters=20)
+        x_bytes = (1 if shared else E) * C * D * 2
+        nbytes = x_bytes + 3 * E * D * FF * 2 + E * C * D * 2
+        b_ms, b_by = bound(nbytes, 2.0 * 3 * E * C * D * FF, "bfloat16")
+        timed[C] = dict(ms=ms, plain_ms=plain, chain_ms=chain_ms, bound_ms=b_ms,
+                        bound_by=b_by)
+        tile = 16 if C <= 32 else 128
+        print(f"[kernels] moe_gmm bf16 timed at C={C}: {ms:.4f} ms (plain "
+              f"{plain:.4f} ms, bound {b_ms:.4f} ms by {b_by}; "
+              f"{nbytes / ms / 1e6:.1f} GB/s, {6 * E * C * D * FF / ms / 1e9:.1f} "
+              f"TFLOP/s; context, not a library call: the torch.bmm chain "
+              f"bmm+bmm+silu·mul+bmm {chain_ms:.4f} ms); grid "
+              f"{-(-C // tile)}×{FF // 64}×{E} + {-(-C // tile)}×{D // 64}×{E} "
+              f"blocks of {tile} tokens × 64 columns")
+    print("[kernels] moe_gmm library: none (no single PyTorch call computes the "
+          "grouped SwiGLU; the torch.bmm chain's times above are context)")
+    del w
+    torch.cuda.empty_cache()
+    row = dict(route="cuda", source="src/repro_torch/csrc/moe_gmm.cu",
+               replaces="src/repro/kernels/moe_gmm/kernel.py:45",
+               max_abs_err=max(errs), library_ms=None,
+               **{k: timed[8][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")})
+    return row, timed
 
 
 # --------------------------------------------------------------------------- #
@@ -390,6 +475,7 @@ def profile_steps(torch, eng, n: int, prepare=None):
         g = ("flash_decode (split + combine)" if "decode_" in low else
              "flash_attention" if "flash_attention" in low else
              "ssd_scan" if "ssd_scan" in low else
+             "moe_gmm" if "moe_gmm" in low else
              "rmsnorm" if "rmsnorm" in low else
              "matmul" if any(k in low for k in ("gemm", "nvjet", "cutlass", "xmma", "sm90")) else
              "other")
@@ -834,6 +920,141 @@ def live_migration(torch, card: str):
     return out
 
 
+def param_count(cfg) -> int:
+    """Parameters of a dense or moe config, from its shapes."""
+    d, hd = cfg.d_model, cfg.n_heads * cfg.d_head
+    kv = cfg.n_kv_heads * cfg.d_head
+    attn = 2 * d * hd + 2 * d * kv + (hd + 2 * kv if cfg.qkv_bias else 0)
+    ffn = (d * cfg.n_experts + 3 * cfg.n_experts * d * cfg.d_ff if cfg.family == "moe"
+           else 3 * d * cfg.d_ff)
+    head = 0 if cfg.tie_embeddings else d * cfg.vocab_size
+    return cfg.vocab_size * d + head + d + cfg.n_layers * (attn + ffn + 2 * d)
+
+
+def serve_mixtral(torch, card: str):
+    """Phase 4e: mixtral-8x7b at full width and 8 of its 32 layers on the
+    paged pool through ``TorchBackend``, 1 replica × 8 slots, once per MoE
+    implementation: 8 requests of 128–512-token prompts, half sharing a
+    128-token prefix, in two waves of 4, 32 new tokens each."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.plan import Plan, ReplicaGroup
+    from repro_torch.kernels.flash_attention import kernel as fa_k
+    from repro_torch.kernels.flash_decode import kernel as fd_k
+    from repro_torch.kernels.moe_gmm import kernel as moe_k
+    from repro_torch.kernels.rmsnorm import kernel as rms_k
+    from repro_torch.models import flags, lm
+    from repro_torch.serving.backend import TorchBackend, measured_interval_metrics
+    from repro_torch.serving.engine import Request
+
+    full = get_config("mixtral-8x7b")
+    cfg = dataclasses.replace(full, n_layers=8)
+    L, V, MAX_NEW, model_name = cfg.n_layers, cfg.vocab_size, 32, cfg.name
+    t0 = time.monotonic()
+    model = lm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    need(n_params == param_count(cfg), "parameter count differs from the config's")
+    built_s = time.monotonic() - t0
+    rng = np.random.default_rng(6)
+    prefix = rng.integers(2, V, size=128).tolist()
+    prompts = {}
+    for rid in range(8):
+        n = int(rng.integers(128, 513))
+        prompts[rid] = (prefix + rng.integers(2, V, size=max(n - 128, 1)).tolist()
+                        if rid % 2 == 0 else rng.integers(2, V, size=n).tolist())
+    prompts[3] = list(prompts[2])              # the same request, served twice
+    out, runs = {}, {}
+    for impl in ("dense", "dispatch"):
+        with flags.scoped(moe_impl=impl):
+            backend = TorchBackend(cfg, model, max_seq_len=2048, slots_cap=8,
+                                   max_replicas_per_group=1, page_size=16,
+                                   device="cuda")
+            backend.apply_plan(Plan((ReplicaGroup(model_name, "H100-80G", tp=1,
+                                                  batch=8, count=1),)), None)
+            [eng] = backend.pool.engines
+            need(eng.paged and eng.n_slots == 8, "plan did not build one paged 8-slot engine")
+            if impl == "dense":
+                pool_mb = sum(t.numel() * t.element_size()
+                              for t in eng.cache.values()) / 2**20
+                print(f"[mixtral] {model_name}: L={L} of {full.n_layers} (the full depth, "
+                      f"{param_count(full) / 1e9:.1f} B parameters, "
+                      f"~{2 * param_count(full) / 1e9:.0f} GB in bf16, does not fit one "
+                      f"80 GB card), d={cfg.d_model}, {cfg.n_heads} heads over "
+                      f"{cfg.n_kv_heads} KV heads, {cfg.n_experts} experts of d_ff "
+                      f"{cfg.d_ff}, top-{cfg.top_k}, window {cfg.sliding_window}, V={V}, "
+                      f"{cfg.dtype}: {n_params / 1e9:.3f}B parameters, "
+                      f"{2 * n_params / 1e9:.2f} GB; 1 replica × 8 slots, max_seq_len "
+                      f"2048, page 16, KV pool {pool_mb:.1f} MiB; weights drawn in "
+                      f"{built_s:.2f}s")
+            backend.pool.submit(model_name, Request(rid=-1, prompt=list(range(2, 200)),
+                                                    max_new_tokens=4))
+            backend.pool.run_until_drained()          # warm-up, not counted
+            backend.pool.finished.clear()
+            d0 = backend.pool.total_dispatches
+            moe_k.launches = rms_k.launches = fd_k.launches = fa_k.launches = 0
+            reqs, done = [], []
+            torch.cuda.synchronize()
+            t1 = time.monotonic()
+            for wave in ((0, 1, 2, 3), (4, 5, 6, 7)):
+                for rid in wave:
+                    r = Request(rid=rid, prompt=list(prompts[rid]), max_new_tokens=MAX_NEW,
+                                arrival_time=time.monotonic())
+                    need(backend.pool.submit(model_name, r), f"request {rid} not routed")
+                    reqs.append(r)
+                done += backend.pool.run_until_drained()
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t1
+            counts = {"moe_gmm": moe_k.launches, "rmsnorm": rms_k.launches,
+                      "paged_flash_decode": fd_k.launches,
+                      "flash_attention": fa_k.launches}
+            disp = backend.pool.total_dispatches - d0
+            by_rid = check_served(reqs, done, MAX_NEW)
+            met = measured_interval_metrics(done, wall)
+            hits = eng.prefix_hits
+            print(f"[mixtral] {impl}: served {met.requests} requests / {met.tokens} "
+                  f"tokens in {wall:.3f}s: {met.tokens_per_s:.1f} tok/s, TTFT p50 "
+                  f"{met.ttft_p50_s * 1e3:.1f} ms p95 {met.ttft_p95_s * 1e3:.1f} ms, TPOT "
+                  f"{met.tpot_s * 1e3:.2f} ms; {disp} dispatches, prefix hits {hits} "
+                  f"[{card}; 128-512-token prompts, half sharing a 128-token prefix, "
+                  f"two waves of 4, {MAX_NEW} new tokens, prefill chunk 64]")
+            print(f"[mixtral] {impl}: launches {counts} over {disp} dispatches (L={L}): "
+                  f"moe_gmm and the attention kernels L per dispatch, rmsnorm 2L+1")
+            need(counts["moe_gmm"] == L * disp, "moe_gmm launches != L·dispatches")
+            need(counts["rmsnorm"] == (2 * L + 1) * disp,
+                 "rmsnorm launches != (2L+1)·dispatches")
+            need(counts["paged_flash_decode"] + counts["flash_attention"] == L * disp
+                 and counts["paged_flash_decode"] > 0 and counts["flash_attention"] > 0,
+                 "attention launches != L per dispatch")
+            need(hits > 0, "no prefix hit")
+            same = by_rid[2].generated == by_rid[3].generated
+            if impl == "dense":
+                need(same, "the same request served twice gave different tokens")
+            idle = print_steps(torch, f"mixtral {impl}", eng, rng, V)
+            out[impl] = {rid: d.generated for rid, d in by_rid.items()}
+            runs[impl] = dict(tokens_per_s=met.tokens_per_s,
+                              ttft_p50_ms=met.ttft_p50_s * 1e3,
+                              ttft_p95_ms=met.ttft_p95_s * 1e3, tpot_ms=met.tpot_s * 1e3,
+                              requests=met.requests, dispatches=disp, prefix_hits=hits,
+                              decode_idle_share=idle, launches=counts,
+                              same_request_same_tokens=same)
+            need(eng.release_all_pages() == 0, "leaked pages")
+            del backend, eng
+            torch.cuda.empty_cache()
+    agree = sum(a == b for rid in out["dense"]
+                for a, b in zip(out["dense"][rid], out["dispatch"][rid]))
+    total = sum(len(t) for t in out["dense"].values())
+    same_d = "the same" if runs["dispatch"]["same_request_same_tokens"] else "different"
+    print(f"[mixtral] dispatch agrees with dense on {agree}/{total} generated tokens "
+          f"({100 * agree / total:.1f}%; capacity drops make them differ by design: "
+          f"reported, not gated); the same request served twice gave the same tokens "
+          f"under dense (gated) and {same_d} tokens under dispatch (reported: its "
+          f"decode row shares capacity across the lanes, so a copy in another lane "
+          f"can be dropped differently)")
+    del model
+    torch.cuda.empty_cache()
+    return dict(runs, agree=agree, total=total, params=n_params)
+
+
 # --------------------------------------------------------------------------- #
 # phase 5: port on the card vs port on the CPU
 # --------------------------------------------------------------------------- #
@@ -842,13 +1063,18 @@ def card_vs_cpu(torch, arch: str, cpu_dtype: str = "float32",
     """The port on the card (bf16, kernels) against the port on the CPU
     (``cpu_dtype``, plain versions) with the same weight values: 2 layers
     at full width, 4 lanes of which lane 2 is inactive, one 64-token
-    prefill chunk, then 8 decode steps — qwen2 through the paged pool,
-    mamba2 through the contiguous state cache.  A differing argmax must be
-    a tie at the bf16 tolerance; ``elementwise`` also holds every active
-    logit to it (otherwise the count beyond it is printed)."""
+    prefill chunk, then 8 decode steps — qwen2 and mixtral through the paged
+    pool, mamba2 through the contiguous state cache.  A differing argmax must
+    be a tie at the bf16 tolerance; ``elementwise`` also holds every active
+    logit to it (otherwise the count beyond it is printed).
+
+    mixtral runs the dense mix.  Near a gate tie bf16 can pick other experts
+    than f32, which is routing, not a kernel error: the CPU follows the
+    card's top-k choices (its own gate values at those experts), and the
+    phase counts the (token, layer) pairs where its own choice differed."""
     import numpy as np
     from repro_torch.configs import get_config
-    from repro_torch.models import lm
+    from repro_torch.models import flags, layers, lm
 
     cfg_gpu = dataclasses.replace(get_config(arch), n_layers=2)
     cfg_cpu = dataclasses.replace(cfg_gpu, dtype=cpu_dtype)
@@ -875,43 +1101,71 @@ def card_vs_cpu(torch, arch: str, cpu_dtype: str = "float32",
     pos2 = np.broadcast_to(np.arange(C, dtype=np.int32), (B, C)).copy()
     worst, agree, near, total, beyond = 0.0, 0, 0, 0, 0
     tol = TOL["bfloat16"]
-    for step in range(STEPS + 1):
-        out = {}
-        for dev, cfg, m in (("cpu", cfg_cpu, m_cpu), ("cuda", cfg_gpu, m_gpu)):
-            t = lambda a: torch.from_numpy(a).to(dev)
-            with torch.inference_mode():
-                if paged:
-                    logits, _ = lm.paged_step(m, cfg, caches[dev], t(tokens), t(pos2),
-                                              t(ptab), t(active), page_size=PAGE)
-                else:
-                    logits, _ = lm.step_with_cache(m, cfg, caches[dev], t(tokens),
-                                                   t(pos2), write=t(np.flatnonzero(active)))
-            out[dev] = logits.float().cpu()
-        a = torch.from_numpy(active)
-        want, got = out["cpu"][a], out["cuda"][a]
-        need(bool(torch.isfinite(got).all()), f"step {step}: non-finite logits")
-        if elementwise:
-            worst = max(worst, max_err(torch, got, want, "bfloat16"))
-        else:
-            diff = (got - want).abs()
-            worst = max(worst, float(diff.max()))
-            beyond += int((diff > tol + tol * want.abs()).sum())
-        top_c = want.argmax(-1)
-        top_g = got.argmax(-1)
-        same = top_c == top_g
-        # a differing argmax must be a tie at the stated tolerance: the CPU
-        # logit of the card's choice within tol of the CPU maximum
-        gap = want.max(-1).values - want.gather(-1, top_g[..., None])[..., 0]
-        need(bool((same | (gap <= tol)).all()),
-             f"step {step}: argmax differs beyond a {tol} tie (gap {float(gap.max())})")
-        agree += int(same.sum())
-        near += int((~same).sum())
-        total += same.numel()
-        tokens = out["cpu"][:, -1].argmax(-1).numpy()[:, None].astype(np.int32)
-        pos2 = (pos2[:, -1:] + 1).astype(np.int32)
+    route, card_topk, flips = layers._route, [], [0, 0]
+    act_t = torch.from_numpy(active)
+
+    def follow_card(p, cfg, x):          # replaces layers._route in this phase
+        top_p, top_i, probs = route(p, cfg, x)
+        if x.device.type == "cuda":
+            card_topk.append(top_i.cpu())
+            return top_p, top_i, probs
+        want = card_topk.pop(0)
+        differ = (top_i.sort(-1).values != want.sort(-1).values).any(-1)[act_t]
+        flips[0] += int(differ.sum())
+        flips[1] += differ.numel()
+        top_p = probs.gather(-1, want)
+        return top_p / top_p.sum(-1, keepdim=True), want, probs
+
+    moe = cfg_gpu.family == "moe"
+    if moe:
+        layers._route = follow_card
+    try:
+        for step in range(STEPS + 1):
+            out = {}
+            for dev, cfg, m in (("cuda", cfg_gpu, m_gpu), ("cpu", cfg_cpu, m_cpu)):
+                t = lambda a: torch.from_numpy(a).to(dev)
+                with torch.inference_mode(), flags.scoped(moe_impl="dense"):
+                    if paged:
+                        logits, _ = lm.paged_step(m, cfg, caches[dev], t(tokens), t(pos2),
+                                                  t(ptab), t(active), page_size=PAGE)
+                    else:
+                        logits, _ = lm.step_with_cache(m, cfg, caches[dev], t(tokens),
+                                                       t(pos2), write=t(np.flatnonzero(active)))
+                out[dev] = logits.float().cpu()
+            a = torch.from_numpy(active)
+            want, got = out["cpu"][a], out["cuda"][a]
+            need(bool(torch.isfinite(got).all()), f"step {step}: non-finite logits")
+            if elementwise:
+                worst = max(worst, max_err(torch, got, want, "bfloat16"))
+            else:
+                diff = (got - want).abs()
+                worst = max(worst, float(diff.max()))
+                beyond += int((diff > tol + tol * want.abs()).sum())
+            top_c = want.argmax(-1)
+            top_g = got.argmax(-1)
+            same = top_c == top_g
+            # a differing argmax must be a tie at the stated tolerance: the CPU
+            # logit of the card's choice within tol of the CPU maximum
+            gap = want.max(-1).values - want.gather(-1, top_g[..., None])[..., 0]
+            need(bool((same | (gap <= tol)).all()),
+                 f"step {step}: argmax differs beyond a {tol} tie (gap {float(gap.max())})")
+            agree += int(same.sum())
+            near += int((~same).sum())
+            total += same.numel()
+            tokens = out["cpu"][:, -1].argmax(-1).numpy()[:, None].astype(np.int32)
+            pos2 = (pos2[:, -1:] + 1).astype(np.int32)
+    finally:
+        layers._route = route
     held = (f"(tol {tol} abs + rel)" if elementwise else
             f"({beyond} of {total * cfg_gpu.vocab_size} active logits beyond "
             f"{tol} abs + rel: reported, not gated)")
+    if moe:
+        need(not card_topk and flips[1] == total * cfg_gpu.n_layers,
+             "routing calls of the card and the CPU do not pair up")
+        held += (f"; the CPU's own top-{cfg_gpu.top_k} differed from the card's at "
+                 f"{flips[0]}/{flips[1]} active (token, layer) pairs "
+                 f"({100 * flips[0] / flips[1]:.2f}%), the CPU followed the card's "
+                 f"experts")
     print(f"[card-vs-cpu] {arch} width, 2 layers, {'paged' if paged else 'contiguous'} "
           f"cache, CPU in {cpu_dtype}, 1 prefill chunk of {C} + {STEPS} decode "
           f"steps, {B} lanes (1 inactive): max |logit diff| {worst:.4e} {held}; "
@@ -964,8 +1218,14 @@ def main(argv=None) -> int:
             4 * (64 * (D + 1) + 32 * (D + 1) + 32 * D + 64 * 33),
             "ssd_scan_kernel (p=64, n=128, 32-position chunks)":
             4 * (2 * LC * (N + 1) + LC * P + LC * (LC + 1) + P * (N + 1) + 3 * LC)}
+    for bm in (16, 128):                # moe_gmm's 4-stage ring, bf16 / f32
+        for nmat, what in ((2, "gate/up"), (1, "down")):
+            smem[f"moe_gmm_kernel ({what}, {bm} tokens)"] = " / ".join(
+                f"{4 * es * (bm * (32 + 16 // es) + nmat * 32 * (64 + 16 // es)):,}"
+                for es in (2, 4))
     print("[build] dynamic shared memory per block: " + "; ".join(
-        f"{k} {v:,} B" for k, v in smem.items()))
+        f"{k} {v if isinstance(v, str) else format(v, ',')} B"
+        for k, v in smem.items()))
 
     # phase 3
     rows = check_kernels(torch)
@@ -977,10 +1237,12 @@ def main(argv=None) -> int:
     ssm_counts, ssm_metrics = serve_mamba2(torch, card)
     contig_counts, contig_metrics = serve_contiguous_qwen2(torch, card)
     migration = live_migration(torch, card)
+    mixtral = serve_mixtral(torch, card)
     launches = {"paged_flash_decode": counts["paged_flash_decode"],
                 "flash_attention": counts["flash_attention"],
                 "rmsnorm": counts["rmsnorm"],
                 "flash_decode": contig_counts["flash_decode"],
+                "moe_gmm": mixtral["dense"]["launches"]["moe_gmm"],
                 "ssd_scan": ssm_counts["ssd_scan"]}
     need(all(n > 0 for n in launches.values()), f"a kernel never launched: {launches}")
     # phase 5
@@ -991,6 +1253,7 @@ def main(argv=None) -> int:
     # in f32 by its greedy tokens (ties allowed)
     card_vs_cpu(torch, "mamba2-1.3b", "bfloat16")
     card_vs_cpu(torch, "mamba2-1.3b", "float32", elementwise=False)
+    card_vs_cpu(torch, "mixtral-8x7b")
 
     # phase 6
     kernels = [dict(name=k, **{key: rows[k][key] for key in (
@@ -998,9 +1261,10 @@ def main(argv=None) -> int:
         **{key: rows[k][key] for key in ("max_abs_err", "ms", "plain_ms",
                                           "bound_ms", "bound_by", "library_ms")})
         for k in ("paged_flash_decode", "flash_attention", "rmsnorm",
-                  "flash_decode", "ssd_scan")]
+                  "flash_decode", "moe_gmm", "ssd_scan")]
     print(json.dumps({"main_path": main_metrics, "mamba2": ssm_metrics,
                       "contiguous_qwen2": contig_metrics, "migration": migration,
+                      "mixtral": mixtral, "moe_gmm_shapes": rows["moe_gmm_shapes"],
                       "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -13,6 +13,7 @@ from repro_torch.configs.base import MLAConfig, ModelConfig, SSMConfig  # noqa: 
 _ARCH_MODULES: Dict[str, str] = {
     "qwen2-1.5b": "qwen2_1_5b",
     "mamba2-1.3b": "mamba2_1_3b",
+    "mixtral-8x7b": "mixtral_8x7b",
 }
 
 

@@ -1,5 +1,5 @@
-"""Transformer layers, dense subset, paged and contiguous caches (port of
-``src/repro/models/layers.py``).
+"""Transformer layers, dense and MoE subset, paged and contiguous caches
+(port of ``src/repro/models/layers.py``).
 
 Weights keep the JAX package's ``(d_in, d_out)`` layout and are applied as
 ``x @ w``, so carrying JAX weights over is a plain copy.  On the card the
@@ -7,11 +7,12 @@ projection, bias and embedding tensors are stored in the working dtype once,
 at load, instead of being cast on every call as the JAX ``linear`` does —
 the numbers are the same.  Norm scales stay f32 (the norm computes in f32).
 
-The projections, the SwiGLU products and the tied head stay ``torch.matmul``:
-they are plain products that the JAX package leaves to XLA outside any
-Pallas kernel.  RMSNorm, decode attention (paged and contiguous) and
-prefill attention go through the port's kernel ops (Triton / CUDA on the
-card, their plain versions on the CPU).
+The projections, the SwiGLU products, the MoE router and the tied head
+stay ``torch.matmul``: they are plain products that the JAX package leaves
+to XLA outside any Pallas kernel.  RMSNorm, decode attention (paged and
+contiguous), prefill attention and the MoE experts' grouped SwiGLU go
+through the port's kernel ops (Triton / CUDA on the card, their plain
+versions on the CPU).
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_decode import ops as fd_ops
+from repro_torch.kernels.moe_gmm import ops as moe_ops
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 
 NEG_INF = -2.0 ** 30  # large-negative that survives bf16
@@ -251,20 +253,95 @@ def paged_attention_fwd(p: Attention, cfg: ModelConfig, x: torch.Tensor,
 
 
 # --------------------------------------------------------------------------- #
-# feed-forward
+# feed-forward: SwiGLU + MoE
 # --------------------------------------------------------------------------- #
 class SwiGLU(nn.Module):
+    """SwiGLU weights (``w_gate``/``w_up`` (d, F), ``w_down`` (F, d));
+    :func:`swiglu` applies them."""
+
     def __init__(self, d: int, d_ff: int, dtype: torch.dtype, device=None):
         super().__init__()
         self.w_gate = _weight((d, d_ff), dtype, device)
         self.w_up = _weight((d, d_ff), dtype, device)
         self.w_down = _weight((d_ff, d), dtype, device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return swiglu(self, x)
-
 
 def swiglu(p: SwiGLU, x: torch.Tensor) -> torch.Tensor:
     g = F.silu(x @ p.w_gate)
     u = x @ p.w_up
     return (g * u) @ p.w_down
+
+
+class MoE(nn.Module):
+    """MoE FFN weights in the JAX layout: ``router`` (d, E), ``w_gate`` and
+    ``w_up`` (E, d, F), ``w_down`` (E, F, d); :func:`moe_dense_mix` and
+    :func:`moe_dispatch` apply them."""
+
+    def __init__(self, cfg: ModelConfig, dtype: torch.dtype, device=None):
+        super().__init__()
+        d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+        self.router = _weight((d, e), dtype, device)
+        self.w_gate = _weight((e, d, f), dtype, device)
+        self.w_up = _weight((e, d, f), dtype, device)
+        self.w_down = _weight((e, f, d), dtype, device)
+
+
+def _route(p: MoE, cfg: ModelConfig, x: torch.Tensor):
+    """Router: f32 softmax over the experts, top-k, renormalised.  Returns
+    (top_p (B, S, K) f32, top_i (B, S, K) int64, probs (B, S, E) f32)."""
+    probs = torch.softmax((x @ p.router).float(), dim=-1)
+    top_p, top_i = torch.topk(probs, cfg.top_k, dim=-1)
+    return top_p / top_p.sum(dim=-1, keepdim=True), top_i, probs
+
+
+def moe_gates(p: MoE, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Dense router gates (B, S, E): renormalised top-k probabilities
+    scattered back into the full expert axis, zeros elsewhere."""
+    top_p, top_i, probs = _route(p, cfg, x)
+    return torch.zeros_like(probs).scatter_(-1, top_i, top_p)
+
+
+def moe_dense_mix(p: MoE, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Baseline MoE: every expert on every token, mixed by the gates.  The
+    experts run as one grouped SwiGLU over a single copy of the B·S tokens
+    (expert stride 0), as ``ep_moe_mix`` feeds the TPU kernel."""
+    B, S, d = x.shape
+    E, T = cfg.n_experts, B * S
+    gates = moe_gates(p, cfg, x).reshape(T, E).to(x.dtype)
+    y = moe_ops.moe_gmm(x.reshape(1, T, d).expand(E, T, d),
+                        p.w_gate, p.w_up, p.w_down)                    # (E, T, d)
+    return torch.einsum("etd,te->td", y, gates).reshape(B, S, d)
+
+
+def moe_dispatch(p: MoE, cfg: ModelConfig, x: torch.Tensor,
+                 capacity_factor: float = 1.25) -> torch.Tensor:
+    """Capacity-based scatter dispatch MoE, with the JAX semantics.
+
+    Capacity is per batch row, ``C = max(ceil(S·K/E·factor), 1)``; a decode
+    step (``S == 1 and B > 1``) is one row of B tokens.  Within a row the
+    (token, k) pairs claim expert slots in flattened order (cumulative sum),
+    and pairs beyond C are dropped (weight 0).  The JAX (B, E, C, d) buffers
+    are packed as (E, B·C, d), so one grouped-SwiGLU launch serves every row.
+    """
+    B, S, d = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    if S == 1 and B > 1:
+        return moe_dispatch(p, cfg, x.reshape(1, B, d), capacity_factor).reshape(B, S, d)
+    C = max(int(math.ceil(S * K / E * capacity_factor)), 1)
+    dev = x.device
+    top_p, top_i, _ = _route(p, cfg, x)
+    flat_e = top_i.reshape(B, S * K)
+    onehot = (flat_e[..., None] == torch.arange(E, device=dev)).long()   # (B, S·K, E)
+    pos = (onehot.cumsum(dim=1) - onehot).gather(2, flat_e[..., None])[..., 0]
+    keep = pos < C
+    # row of each (token, k) pair in the packed (E·B·C, d) buffer; dropped
+    # pairs point at their expert's first slot and add zeros there
+    slot = (flat_e * (B * C) + torch.arange(B, device=dev)[:, None] * C
+            + torch.where(keep, pos, 0)).reshape(-1)
+    src = x.repeat_interleave(K, dim=1) * keep[..., None].to(x.dtype)
+    buf = torch.zeros((E * B * C, d), dtype=x.dtype, device=dev)
+    buf.index_add_(0, slot, src.reshape(-1, d))
+    y = moe_ops.moe_gmm(buf.view(E, B * C, d), p.w_gate, p.w_up, p.w_down)
+    w = (top_p.reshape(B, S * K) * keep).to(x.dtype)
+    out = y.reshape(E * B * C, d)[slot].reshape(B, S * K, d) * w[..., None]
+    return out.reshape(B, S, K, d).sum(dim=2)

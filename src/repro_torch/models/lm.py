@@ -1,15 +1,17 @@
-"""Language model, dense and SSM subsets (port of ``src/repro/models/lm.py``).
+"""Language model, dense, MoE and SSM subsets (port of ``src/repro/models/lm.py``).
 
 The JAX model is a pure function over a parameter pytree with a
 ``lax.scan`` over stacked layers; here it is an ``nn.Module`` (:class:`LM`,
-an ``nn.ModuleList`` of :class:`DecoderLayer` for the dense family or
-:class:`MambaLayer` for the ssm family) and the scan is a Python loop.
+an ``nn.ModuleList`` of :class:`DecoderLayer` for the dense and moe
+families or :class:`MambaLayer` for the ssm family) and the scan is a
+Python loop.  A moe layer's FFN is chosen by the ``moe_impl`` flag
+(:mod:`repro_torch.models.flags`) on every call.
 Weights come from :func:`init_params` (seeded ``torch.Generator``) or from
 JAX weights through :func:`params_from_jax` (numpy in, no JAX import).
 
 Two caches, as in the JAX package:
 
-* the paged KV pool of the dense family (:func:`init_paged_cache`,
+* the paged KV pool of the dense and moe families (:func:`init_paged_cache`,
   :func:`paged_step`);
 * the contiguous per-slot cache (:func:`init_cache`: dense ``k/v/pos``,
   SSM ``conv/ssm``; :func:`step_with_cache`, :func:`decode_step`,
@@ -38,10 +40,11 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device, working_dtype
-from repro_torch.models import ssd
-from repro_torch.models.layers import (Attention, RMSNorm, SwiGLU,
-                                       attention_fwd, paged_attention_fwd,
-                                       softcap)
+from repro_torch.models import flags, ssd
+from repro_torch.models.layers import (Attention, MoE, RMSNorm, SwiGLU,
+                                       attention_fwd, moe_dense_mix,
+                                       moe_dispatch, paged_attention_fwd,
+                                       softcap, swiglu)
 
 Cache = Dict[str, torch.Tensor]
 
@@ -69,10 +72,11 @@ def paged_window(cfg: ModelConfig) -> Optional[int]:
 def _check_served(cfg: ModelConfig) -> None:
     if cfg.family == "ssm":
         return
-    if not pageable(cfg) or cfg.family != "dense" or cfg.mla is not None:
+    if (not pageable(cfg) or cfg.family not in ("dense", "moe")
+            or cfg.mla is not None):
         raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}): the port serves dense GQA and SSM "
-            f"configs; MLA, MoE, hybrid, local/global pairs and "
+            f"{cfg.name} ({cfg.family}): the port serves dense GQA, MoE and "
+            f"SSM configs; MLA, hybrid, local/global pairs and "
             f"encoder-decoder come with later slices (ROADMAP queue 1, item 7)")
 
 
@@ -94,22 +98,34 @@ def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
 # --------------------------------------------------------------------------- #
 # model
 # --------------------------------------------------------------------------- #
+def _ffn_fwd(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU, or for the moe family the MoE FFN named by the ``moe_impl``
+    flag: ``"dispatch"`` runs :func:`moe_dispatch`, anything else
+    :func:`moe_dense_mix` (the JAX ``_ffn_fwd`` on one device)."""
+    if cfg.family == "moe":
+        impl = flags.get_flag("moe_impl")
+        return (moe_dispatch if impl == "dispatch" else moe_dense_mix)(p, cfg, x)
+    return swiglu(p, x)
+
+
 class DecoderLayer(nn.Module):
-    """Pre-norm decoder layer: rmsnorm → attention → rmsnorm → SwiGLU.
-    ``attend(attn, h)`` applies the attention weights against whichever
-    cache the caller holds (the JAX ``_decoder_layer_fwd`` /
-    ``_paged_decoder_layer_fwd``, dense path)."""
+    """Pre-norm decoder layer: rmsnorm → attention → rmsnorm → SwiGLU or
+    MoE.  ``attend(attn, h)`` applies the attention weights against
+    whichever cache the caller holds (the JAX ``_decoder_layer_fwd`` /
+    ``_paged_decoder_layer_fwd``, dense and moe path)."""
 
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype, device=None):
         super().__init__()
+        self.cfg = cfg
         self.ln1 = RMSNorm(cfg.d_model, cfg.norm_eps, device)
         self.attn = Attention(cfg, dtype, device)
         self.ln2 = RMSNorm(cfg.d_model, cfg.norm_eps, device)
-        self.ffn = SwiGLU(cfg.d_model, cfg.d_ff, dtype, device)
+        self.ffn = (MoE(cfg, dtype, device) if cfg.family == "moe" else
+                    SwiGLU(cfg.d_model, cfg.d_ff, dtype, device))
 
     def forward(self, x, attend):
         x = x + attend(self.attn, self.ln1(x))
-        return x + self.ffn(self.ln2(x))
+        return x + _ffn_fwd(self.ffn, self.cfg, self.ln2(x))
 
 
 class MambaLayer(nn.Module):
@@ -126,8 +142,9 @@ class MambaLayer(nn.Module):
 
 
 class LM(nn.Module):
-    """Decoder-only LM of the dense or ssm family.  Parameter names mirror
-    the JAX pytree (``layers.{l}.attn.wq`` ↔ ``layers/attn/wq[l]``,
+    """Decoder-only LM of the dense, moe or ssm family.  Parameter names
+    mirror the JAX pytree (``layers.{l}.attn.wq`` ↔ ``layers/attn/wq[l]``,
+    ``layers.{l}.ffn.router`` ↔ ``layers/ffn/router[l]``,
     ``layers.{l}.mixer.in_proj.w`` ↔ ``layers/mixer/in_proj/w[l]``)."""
 
     def __init__(self, cfg: ModelConfig, device: DeviceLike = None):
@@ -157,13 +174,14 @@ class LM(nn.Module):
 
 
 def _init_scale(cfg: ModelConfig, name: str, shape) -> float:
-    """lm.init_params' distributions: uniform ±1/√d_in for matrices (the
-    embedding uses 1/√d_model), zeros for biases and norm scales."""
+    """lm.init_params' distributions: uniform ±1/√d_in for matrices, d_in
+    being the second-to-last axis (the expert tensors (E, d_in, d_out) too;
+    the embedding uses 1/√d_model), zeros for biases and norm scales."""
     if len(shape) < 2:
         return 0.0
     if name == "embed":
         return 1.0 / math.sqrt(cfg.d_model)
-    return 1.0 / math.sqrt(shape[0])
+    return 1.0 / math.sqrt(shape[-2])
 
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,

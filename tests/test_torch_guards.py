@@ -17,6 +17,8 @@ from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_decode import kernel as fd_kernel
 from repro_torch.kernels.flash_decode import ops as fd_ops
+from repro_torch.kernels.moe_gmm import kernel as moe_kernel
+from repro_torch.kernels.moe_gmm import ops as moe_ops
 from repro_torch.kernels.rmsnorm import kernel as rms_kernel
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.models import lm
@@ -101,15 +103,21 @@ def test_kernel_launchers_refuse_cpu_tensors():
     kp = torch.zeros(5, 4, 2, 16)
     pt = torch.ones(2, 2, dtype=torch.int32)
     kl = torch.ones(2, dtype=torch.int32)
-    before = (rms_kernel.launches, fd_kernel.launches, fa_kernel.launches)
+    w = torch.zeros(2, 64, 64)
+    before = (rms_kernel.launches, fd_kernel.launches, fa_kernel.launches,
+              moe_kernel.launches)
     with pytest.raises(ValueError, match="CUDA"):
         rms_kernel.rmsnorm(q, torch.zeros(16))
     with pytest.raises(ValueError, match="CUDA"):
         fd_kernel.paged_flash_decode(q, kp, kp, pt, kl)
     with pytest.raises(ValueError, match="CUDA"):
         fa_kernel.flash_attention(q[:, None], kp[:2], kp[:2])
-    assert (rms_kernel.launches, fd_kernel.launches, fa_kernel.launches) == before
+    with pytest.raises(ValueError, match="CUDA"):
+        moe_kernel.moe_gmm(torch.zeros(1, 3, 64).expand(2, 3, 64), w, w, w)
+    assert (rms_kernel.launches, fd_kernel.launches, fa_kernel.launches,
+            moe_kernel.launches) == before
     assert rms_kernel._jitted is None and fd_kernel._fn is None and fa_kernel._fn is None
+    assert moe_kernel._fn is None
 
 
 def test_ops_route_only_cpu_and_cuda():
@@ -125,6 +133,9 @@ def test_ops_route_only_cpu_and_cuda():
         fd_ops.paged_flash_decode(q, kp, kp, pt, pt[:, 0])
     with pytest.raises(ValueError, match="unsupported device"):
         fa_ops.flash_attention(q[:, None], kp[:2], kp[:2])
+    w = torch.zeros(2, 64, 64, device=meta)
+    with pytest.raises(ValueError, match="unsupported device"):
+        moe_ops.moe_gmm(torch.zeros(2, 3, 64, device=meta), w, w, w)
 
 
 def test_unported_paths_raise_not_implemented():
@@ -133,6 +144,9 @@ def test_unported_paths_raise_not_implemented():
     swa = dataclasses.replace(cfg, sliding_window=16)
     with pytest.raises(NotImplementedError, match="rolling sliding-window"):
         Engine(swa, lm.init_params(swa, device="cpu"), paged=False, device="cpu")
+    moe = get_config("mixtral-8x7b").reduced()
+    with pytest.raises(NotImplementedError, match="rolling sliding-window"):
+        Engine(moe, lm.init_params(moe, device="cpu"), paged=False, device="cpu")
     hybrid = dataclasses.replace(get_config("mamba2-1.3b").reduced(),
                                  family="hybrid", attn_every=2)
     with pytest.raises(NotImplementedError, match="hybrid"):
@@ -152,7 +166,7 @@ def test_cuda_build_is_keyed_by_source_and_headers(tmp_path, monkeypatch):
     the checkout's build directory, so an edited kernel is rebuilt."""
     assert build.BUILD_DIR == ROOT / "build" / "repro_torch_kernels"
     assert build.TRITON_HOME.parent == ROOT / "build"
-    for name in ("paged_flash_decode", "flash_attention", "ssd_scan"):
+    for name in ("paged_flash_decode", "flash_attention", "ssd_scan", "moe_gmm"):
         assert (build.CSRC / f"{name}.cu").exists()
     csrc = tmp_path / "csrc"
     csrc.mkdir()
@@ -184,7 +198,9 @@ def test_kernel_modules_import_without_triton_or_nvcc(tmp_path):
             "from repro_torch.kernels.flash_decode import ops, kernel\n"
             "from repro_torch.kernels.flash_attention import ops, kernel\n"
             "from repro_torch.kernels.ssd_scan import ops, kernel\n"
-            "import repro_torch.models.lm, repro_torch.models.ssd\n")
+            "from repro_torch.kernels.moe_gmm import ops, kernel\n"
+            "import repro_torch.models.lm, repro_torch.models.ssd\n"
+            "import repro_torch.models.flags\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          env={"PYTHONPATH": str(ROOT / "src"),
                               "PATH": str(tmp_path),

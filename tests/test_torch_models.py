@@ -72,6 +72,16 @@ def test_init_params_distributions():
     assert float(model.final_norm.scale.abs().sum()) == 0.0
     again = tlm.init_params(tcfg, torch.Generator().manual_seed(0), device="cpu")
     assert torch.equal(model.layers[1].attn.wk, again.layers[1].attn.wk)
+    # expert tensors (E, d_in, d_out) draw with 1/√d_in, as init_moe does
+    moe = dataclasses.replace(tget_config("mixtral-8x7b").reduced(), dtype="float32")
+    model = tlm.init_params(moe, torch.Generator().manual_seed(0), device="cpu")
+    d, dff = moe.d_model, moe.d_ff
+    for name, bound in [("layers.0.ffn.router", d ** -0.5),
+                        ("layers.1.ffn.w_gate", d ** -0.5),
+                        ("layers.2.ffn.w_up", d ** -0.5),
+                        ("layers.3.ffn.w_down", dff ** -0.5)]:
+        w = dict(model.named_parameters())[name]
+        assert w.abs().max() <= bound and w.abs().max() > 0.9 * bound
 
 
 def test_apply_rope_matches_reference():
