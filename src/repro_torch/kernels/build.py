@@ -18,10 +18,11 @@ import threading
 from pathlib import Path
 from typing import Dict, List, Sequence
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"
 BUILD_DIR = BUILD_ROOT / "repro_torch_kernels"
-TRITON_HOME = BUILD_ROOT / "triton"      # Triton's cache, kept in the checkout
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "-lineinfo")
 
@@ -93,12 +94,14 @@ def build(names: Sequence[str]) -> List[Path]:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, building it if needed.
-    Every library exports ``repro_error_string(int) -> const char*``."""
+    Every library exports ``repro_error_string(int) -> const char*``.
+    Loaded as a ``PyDLL``: a launcher only enqueues work and returns, so
+    its calls keep the GIL rather than release and retake it."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             [path] = build([name])
-            lib = ctypes.CDLL(str(path))
+            lib = ctypes.PyDLL(str(path))
             lib.repro_error_string.argtypes = [ctypes.c_int]
             lib.repro_error_string.restype = ctypes.c_char_p
             _libs[name] = lib
@@ -110,6 +113,13 @@ def build_log(name: str) -> str:
     memory, spills per kernel); empty when the library was not built here."""
     log = library_path(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
+
+
+def stream(t: torch.Tensor) -> int:
+    """Raw handle of the current CUDA stream of ``t``'s device for a C
+    launcher: ``torch.cuda.current_stream(t.device).cuda_stream`` without
+    building a ``Stream`` object on every launch."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

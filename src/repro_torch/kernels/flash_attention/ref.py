@@ -1,11 +1,13 @@
 """Plain PyTorch flash attention (port of
 ``src/repro/kernels/flash_attention/ref.py``), with GQA over un-repeated
-K/V and an optional per-row ``kv_len``.
+K/V, an optional per-row ``kv_len`` and an optional page table.
 
 The specification the CUDA kernel is held to, and what the op runs for
 tensors on the CPU.  Query row ``i`` of batch row ``b`` sits at position
 ``kv_len[b] − Sq + i`` (end-aligned), keys at ``≥ kv_len[b]`` are masked,
-and a row that can see no key writes zeros, as the kernel does.
+and a row that can see no key writes zeros, as the kernel does.  With
+``ptab`` the keys are the pages it maps, gathered here (the kernel reads
+them in place), and the arithmetic is the same.
 """
 from __future__ import annotations
 
@@ -20,10 +22,17 @@ NEG_INF = -2.0 ** 30
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, window: Optional[int] = None,
                         softcap: Optional[float] = None,
-                        kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """q: (B, Sq, H, D); k, v: (B, Sk, Hkv, D) un-repeated; kv_len: (B,) or
-    None (= Sk).  Returns (B, Sq, H, D) in q's dtype; all arithmetic in f32."""
+                        kv_len: Optional[torch.Tensor] = None,
+                        ptab: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q: (B, Sq, H, D); k, v: (B, Sk, Hkv, D) un-repeated, or with ``ptab``
+    (B, n_ptab) page pools (P, page, Hkv, D) read as Sk = n_ptab·page keys
+    per row; kv_len: (B,) or None (= Sk).  Returns (B, Sq, H, D) in q's
+    dtype; all arithmetic in f32."""
     B, Sq, H, D = q.shape
+    if ptab is not None:
+        idx = ptab.long()
+        k = k[idx].reshape(B, -1, *k.shape[2:])
+        v = v[idx].reshape(B, -1, *v.shape[2:])
     Sk, Hkv = k.shape[1], k.shape[2]
     rep = H // Hkv
     kf = k.float().repeat_interleave(rep, dim=2)

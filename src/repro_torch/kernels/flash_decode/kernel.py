@@ -128,7 +128,7 @@ def paged_flash_decode(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
              part_acc.data_ptr(), part_ml.data_ptr(),
              B, H, Hkv, D, page, n_ptab, per, n_splits,
              -1 if window is None else int(window),
-             1.0 / math.sqrt(D), torch.cuda.current_stream(q.device).cuda_stream)
+             1.0 / math.sqrt(D), build.stream(q))
     build.check(lib, err, _NAME)
     launches += 1
     return out
@@ -180,7 +180,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     err = fn(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
              kv_len.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
              part_ml.data_ptr(), B, H, Hkv, D, S, CONTIG_TILE, per, n_splits,
-             1.0 / math.sqrt(D), torch.cuda.current_stream(q.device).cuda_stream)
+             1.0 / math.sqrt(D), build.stream(q))
     build.check(lib, err, "flash_decode")
     contig_launches += 1
     return out

@@ -89,7 +89,7 @@ def moe_gmm(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     lib, fn = _launcher()
     err = fn(_DTYPE_CODE[x.dtype], x.data_ptr(), x.stride(0), w_gate.data_ptr(),
              w_up.data_ptr(), w_down.data_ptr(), h.data_ptr(), y.data_ptr(),
-             E, C, D, F, torch.cuda.current_stream(x.device).cuda_stream)
+             E, C, D, F, build.stream(x))
     build.check(lib, err, _NAME)
     launches += 1
     return y

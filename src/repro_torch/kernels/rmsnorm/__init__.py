@@ -1,1 +1,1 @@
-"""Fused RMSNorm: Triton kernel + plain version (port of ``src/repro/kernels/rmsnorm/``)."""
+"""Fused RMSNorm: CUDA kernel + plain version (port of ``src/repro/kernels/rmsnorm/``)."""

@@ -1,6 +1,6 @@
 """Public RMSNorm op (port of ``src/repro/kernels/rmsnorm/ops.py``).
 
-A tensor on the card goes to the Triton kernel; a tensor on the CPU goes to
+A tensor on the card goes to the CUDA kernel; a tensor on the CPU goes to
 the plain PyTorch version.  Nothing else: no fall-back between the two.
 """
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Plain PyTorch RMSNorm (port of ``src/repro/kernels/rmsnorm/ref.py``).
 
-The specification the Triton kernel is held to, and what the op runs for
+The specification the CUDA kernel is held to, and what the op runs for
 tensors on the CPU.
 """
 from __future__ import annotations

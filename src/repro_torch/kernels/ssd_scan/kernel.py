@@ -96,7 +96,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              B.data_ptr(), C.data_ptr(),
              0 if initial_state is None else initial_state.data_ptr(),
              y.data_ptr(), fin.data_ptr(), b, s, h, p, n,
-             torch.cuda.current_stream(x.device).cuda_stream)
+             build.stream(x))
     build.check(lib, err, _NAME)
     launches += 1
     return y, fin

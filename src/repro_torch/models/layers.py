@@ -11,7 +11,7 @@ The projections, the SwiGLU products, the MoE router and the tied head
 stay ``torch.matmul``: they are plain products that the JAX package leaves
 to XLA outside any Pallas kernel.  RMSNorm, decode attention (paged and
 contiguous), prefill attention and the MoE experts' grouped SwiGLU go
-through the port's kernel ops (Triton / CUDA on the card, their plain
+through the port's kernel ops (CUDA on the card, their plain
 versions on the CPU).
 """
 from __future__ import annotations
@@ -224,8 +224,9 @@ def paged_attention_fwd(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     Unlike the JAX function, which returns new pools, the port writes this
     chunk's K/V into ``kp``/``vp`` in place (``index_copy_`` into the
     ``(P·page, Hkv, D)`` view) and returns only the attention output.
-    ``C == 1`` runs the paged decode kernel; ``C > 1`` gathers the mapped
-    pages (``kp[ptab]``) and runs the flash-attention kernel with per-row
+    ``C == 1`` runs the paged decode kernel; ``C > 1`` runs the
+    flash-attention kernel on the pools through ``ptab`` (the kernel reads
+    the mapped pages in place; no gathered copy) with per-row
     ``kv_len = lens``.
     """
     B, C, _ = x.shape
@@ -243,12 +244,9 @@ def paged_attention_fwd(p: Attention, cfg: ModelConfig, x: torch.Tensor,
         out = fd_ops.paged_flash_decode_head_slice(
             q[:, 0], kp, vp, ptab, lens, 0, Hkv, window=window)[:, None]
     else:
-        S = ptab.shape[1] * page
-        K = kp[ptab].reshape(B, S, Hkv, D)            # gather mapped pages
-        V = vp[ptab].reshape(B, S, Hkv, D)
-        out = fa_ops.flash_attention(q, K, V, causal=True, window=window,
+        out = fa_ops.flash_attention(q, kp, vp, causal=True, window=window,
                                      softcap=cfg.attn_logit_softcap,
-                                     kv_len=lens)
+                                     kv_len=lens, ptab=ptab)
     return out.reshape(B, C, H * D) @ p.wo
 
 

@@ -97,7 +97,7 @@ def test_entry_points_raise_without_a_card():
 
 
 def test_kernel_launchers_refuse_cpu_tensors():
-    """The CUDA/Triton launchers never compute on the host: given tensors
+    """The CUDA launchers never compute on the host: given tensors
     that are not on the card they raise before building anything."""
     q = torch.zeros(2, 4, 16)
     kp = torch.zeros(5, 4, 2, 16)
@@ -116,7 +116,7 @@ def test_kernel_launchers_refuse_cpu_tensors():
         moe_kernel.moe_gmm(torch.zeros(1, 3, 64).expand(2, 3, 64), w, w, w)
     assert (rms_kernel.launches, fd_kernel.launches, fa_kernel.launches,
             moe_kernel.launches) == before
-    assert rms_kernel._jitted is None and fd_kernel._fn is None and fa_kernel._fn is None
+    assert rms_kernel._fn is None and fd_kernel._fn is None and fa_kernel._fn is None
     assert moe_kernel._fn is None
 
 
@@ -165,8 +165,8 @@ def test_cuda_build_is_keyed_by_source_and_headers(tmp_path, monkeypatch):
     """Libraries are named by a hash of the .cu and the shared headers, under
     the checkout's build directory, so an edited kernel is rebuilt."""
     assert build.BUILD_DIR == ROOT / "build" / "repro_torch_kernels"
-    assert build.TRITON_HOME.parent == ROOT / "build"
-    for name in ("paged_flash_decode", "flash_attention", "ssd_scan", "moe_gmm"):
+    for name in ("paged_flash_decode", "flash_attention", "ssd_scan", "moe_gmm",
+                 "rmsnorm"):
         assert (build.CSRC / f"{name}.cu").exists()
     csrc = tmp_path / "csrc"
     csrc.mkdir()
@@ -188,6 +188,53 @@ def test_decode_split_plan_fills_the_card():
     assert fd_kernel.split_plan(16, 128, 132) == (4, 32)
     assert fd_kernel.split_plan(16, 3, 132) == (1, 3)
     assert fd_kernel.split_plan(1024, 128, 132) == (128, 1)
+
+
+def test_flash_attention_split_plan_fills_the_card():
+    # a serving prefill chunk: one lane of 16 live tiles (kv_len 1024, Sq 64),
+    # 12 (row block, KV head) pairs with work, spread over 132 SMs
+    tiles = [fa_kernel.lane_tiles(n, 64, 2048, None) for n in [1024] + [0] * 7]
+    assert tiles == [16] + [0] * 7
+    per, splits = fa_kernel.split_plan(12, tiles, 132)
+    assert per == 1 and splits == [16] + [0] * 7
+    assert 12 * sum(splits) >= 132
+    assert fa_kernel.max_splits(12, 2048, 132) == 22 >= max(splits)
+    # a grid that already fills the card gets one split and no combine
+    assert fa_kernel.max_splits(600, 2048, 132) == 1
+    assert fa_kernel.split_plan(600, [32] * 8, 132)[1] == [1] * 8
+    assert fa_kernel.split_plan(96, [8] * 8, 132, n_cap=1)[1] == [1] * 8
+    # never more splits than live key tiles, and none for an idle lane
+    assert fa_kernel.split_plan(12, [3, 0], 132) == (1, [3, 0])
+    for pairs in (1, 12, 32, 96):
+        lanes = [0, 1, 5, 16, 32]
+        per, splits = fa_kernel.split_plan(pairs, lanes, 132)
+        assert all(n <= t for n, t in zip(splits, lanes))
+        assert all(n <= fa_kernel.max_splits(pairs, 2048, 132) for n in splits)
+    # the live range: a window drops the tiles below the first query's reach
+    assert fa_kernel.lane_tiles(1024, 64, 2048, 256) == 16 - 705 // 64
+    assert fa_kernel.lane_tiles(3000, 64, 2048, None) == 32
+
+
+def test_flash_attention_paged_launcher_refuses_bad_inputs():
+    """Paged mode refuses a bad page table or page size, and tensors that
+    are not on the card, before anything is built or counted."""
+    q = torch.zeros(2, 8, 4, 16)
+    kp = torch.zeros(9, 4, 2, 16)
+    pt = torch.ones(2, 3, dtype=torch.int32)
+    kl = torch.ones(2, dtype=torch.int32)
+    before = fa_kernel.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        fa_kernel.flash_attention(q, kp, kp, kv_len=kl, ptab=pt)
+    with pytest.raises(ValueError, match="ptab must be int32"):
+        fa_kernel.flash_attention(q, kp, kp, kv_len=kl, ptab=pt.long())
+    with pytest.raises(ValueError, match="ptab must be int32"):
+        fa_kernel.flash_attention(q, kp, kp, kv_len=kl, ptab=pt[:1])
+    with pytest.raises(ValueError, match="ptab must be int32"):
+        fa_kernel.flash_attention(q, kp, kp, kv_len=kl, ptab=pt[0])
+    odd = torch.zeros(9, 6, 2, 16)
+    with pytest.raises(ValueError, match="power of two"):
+        fa_kernel.flash_attention(q, odd, odd, kv_len=kl, ptab=pt)
+    assert fa_kernel.launches == before and fa_kernel._fn is None
 
 
 def test_kernel_modules_import_without_triton_or_nvcc(tmp_path):

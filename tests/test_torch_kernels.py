@@ -150,3 +150,40 @@ def test_flash_attention_kv_len_matches_paged_prefill_mask(window):
                               kv_len=torch.from_numpy(lens))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
                                rtol=2e-5)
+
+
+@pytest.mark.parametrize("page", [4, 8])
+@pytest.mark.parametrize("window", [None, 6])
+def test_flash_attention_ptab_matches_gather_and_paged_prefill(window, page):
+    """With ``ptab`` the plain flash attention reads the page pools through
+    the page table: it equals the call on the gathered K/V, and on its
+    active lanes the JAX paged prefill (``_attn_mask`` + ``sdpa`` on the
+    gathered pages, as in ``layers.paged_attention_fwd``).  The page table
+    is scattered and not monotone; lane 1 has ``kv_len = 0`` and gets
+    zeros (the JAX gather path gives the mean of fully masked rows there)."""
+    rng = np.random.default_rng(13 + page)
+    B, C, H, Hkv, D, n_ptab = 3, 8, 4, 2, 16, 5
+    P, S = B * n_ptab + 1, n_ptab * page
+    q = rng.standard_normal((B, C, H, D)).astype(np.float32)
+    kp = rng.standard_normal((P, page, Hkv, D)).astype(np.float32)
+    vp = rng.standard_normal((P, page, Hkv, D)).astype(np.float32)
+    ptab = rng.permutation(np.arange(1, P)).reshape(B, n_ptab).astype(np.int32)
+    assert (np.diff(ptab, axis=1) < 0).any()
+    lens = np.array([19, 0, S - 3], np.int32)
+    tq, tkp, tvp = (torch.from_numpy(a) for a in (q, kp, vp))
+    tpt, tl = torch.from_numpy(ptab), torch.from_numpy(lens)
+    got = tfa.flash_attention(tq, tkp, tvp, causal=True, window=window,
+                              kv_len=tl, ptab=tpt)
+    K = kp[ptab].reshape(B, S, Hkv, D)
+    V = vp[ptab].reshape(B, S, Hkv, D)
+    gathered = tfa.flash_attention(tq, torch.from_numpy(K), torch.from_numpy(V),
+                                   causal=True, window=window, kv_len=tl)
+    torch.testing.assert_close(got, gathered, atol=0, rtol=0)
+    assert not got[1].any()
+    pos2 = lens[:, None] - C + np.arange(C, dtype=np.int32)[None]
+    kpos = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S))
+    mask = (jlayers._attn_mask(jnp.asarray(pos2), jnp.asarray(kpos), window)
+            & (jnp.asarray(kpos) < jnp.asarray(lens)[:, None])[:, None, None, :])
+    want = np.asarray(jlayers.sdpa(jnp.asarray(q), jnp.asarray(K), jnp.asarray(V), mask))
+    act = lens > 0
+    np.testing.assert_allclose(got.numpy()[act], want[act], atol=2e-5, rtol=2e-5)

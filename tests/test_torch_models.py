@@ -150,6 +150,44 @@ def test_paged_attention_fwd_matches_reference(models, C):
     np.testing.assert_allclose(tvp.numpy(), np.asarray(jvp), atol=LAYER_TOL)
 
 
+def test_paged_attention_fwd_window_and_empty_lane_match_reference(models):
+    """A C = 8 chunk with a sliding window (6) and an inactive lane (kv_len 0,
+    its writes diverted to the trash page 0, as ``paged_step`` does): the
+    port's attention reads the pools through ``ptab``; the active lanes'
+    outputs and every mapped page equal JAX's gather + sdpa."""
+    jcfg, tcfg, params, model = models
+    rng = np.random.default_rng(21)
+    B, C, n_ptab, window = 3, 8, 5, 6
+    Hkv, D = jcfg.n_kv_heads, jcfg.d_head
+    x = rng.standard_normal((B, C, jcfg.d_model)).astype(np.float32)
+    ptab = _lanes(rng, B, n_ptab)
+    active = np.array([True, False, True])
+    start = np.array([5, 0, 10], np.int32)
+    pos2 = (start[:, None] + np.arange(C, dtype=np.int32)[None]).astype(np.int32)
+    lens = np.where(active, pos2[:, -1] + 1, 0).astype(np.int32)
+    phys = np.take_along_axis(ptab, pos2 // PAGE, axis=1)
+    widx = np.where(active[:, None], phys * PAGE + pos2 % PAGE,
+                    np.arange(C)[None] % PAGE).astype(np.int32)
+    kp = rng.standard_normal((N_PAGES, PAGE, Hkv, D)).astype(np.float32)
+    vp = rng.standard_normal((N_PAGES, PAGE, Hkv, D)).astype(np.float32)
+
+    lp = jax.tree.map(lambda t: t[0], params["layers"])
+    jout, (jkp, jvp) = jlayers.paged_attention_fwd(
+        lp["attn"], jcfg, jnp.asarray(x), jnp.asarray(pos2), window,
+        jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(ptab), jnp.asarray(lens),
+        jnp.asarray(widx))
+    tkp, tvp = torch.from_numpy(kp.copy()), torch.from_numpy(vp.copy())
+    tout = tlayers.paged_attention_fwd(
+        model.layers[0].attn, tcfg, torch.from_numpy(x),
+        torch.from_numpy(pos2).long(), window, tkp, tvp, torch.from_numpy(ptab),
+        torch.from_numpy(lens), torch.from_numpy(widx.reshape(-1)).long())
+    np.testing.assert_allclose(tout.numpy()[active], np.asarray(jout)[active],
+                               atol=LAYER_TOL, rtol=LAYER_TOL)
+    # page 0 takes the inactive lane's duplicate writes in either order
+    np.testing.assert_allclose(tkp.numpy()[1:], np.asarray(jkp)[1:], atol=LAYER_TOL)
+    np.testing.assert_allclose(tvp.numpy()[1:], np.asarray(jvp)[1:], atol=LAYER_TOL)
+
+
 def test_paged_step_prefill_then_decode_matches_reference(models):
     """One prefill chunk then 4 decode steps over 4 lanes, lane 2 inactive
     throughout; logits of active lanes within 1e-4, greedy tokens exact."""
