@@ -9,10 +9,12 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      source, in parallel; ptxas registers, shared memory and spills);
   3. each kernel against its plain PyTorch version at the main paths'
      full-width shapes (bf16 to 2e-2, f32 to 2e-5; flash attention also on
-     page pools through a scattered page table), with the kernel's, the
-     plain version's and one PyTorch library call's times (CUDA events, L2
-     cold for the attention kernels), the kernel's bound, and for RMSNorm
-     and flash attention the device time per launch (``torch.profiler``);
+     page pools through a scattered page table; decode over group sizes
+     4/6/8, head dims 64/128, edge lengths and windows), with the kernel's,
+     the plain version's and one PyTorch library call's times (CUDA events,
+     L2 cold for the attention kernels), every kernel's device time per
+     launch (``torch.profiler``), its bound, the attention kernels at the
+     serving shapes and the decode split plan of each shape;
   4. the paths at full width with seeded random weights, each with the
      kernels' launch counters zeroed just before it and checked against its
      dispatches just after:
@@ -74,7 +76,7 @@ def ptxas_summary(log: str):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             mangled = m.group(1)
-            base = re.search(r"(decode_split_kernel|decode_combine_kernel|"
+            base = re.search(r"(decode_\w+?_kernel|"
                              r"flash_attention_\w+?_kernel|ssd_scan_kernel|"
                              r"moe_gmm_kernel|rmsnorm_kernel)", mangled)
             dtype = ("bf16" if "nv_bfloat16" in mangled or "tc_kernel" in mangled else
@@ -111,10 +113,10 @@ def time_ms(torch, fn, n_inputs: int, iters: int = 40, warmup: int = 3) -> float
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, n_inputs: int, name: str, iters: int = 40) -> float:
-    """Device milliseconds per call of ``fn(i)`` in the kernels whose name
-    holds ``name`` (all of a call's kernels summed), from ``torch.profiler``
-    over ``iters`` calls after one warm-up call."""
+def device_ms_by_kernel(torch, fn, n_inputs: int, name: str, iters: int = 40) -> dict:
+    """Device milliseconds per call of ``fn(i)`` in each kernel whose name
+    holds ``name``, from ``torch.profiler`` over ``iters`` calls after one
+    warm-up call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -124,10 +126,20 @@ def device_ms(torch, fn, n_inputs: int, name: str, iters: int = 40) -> float:
         for i in range(iters):
             fn(i % n_inputs)
         torch.cuda.synchronize()
-    spans = [e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == DeviceType.CUDA and name in e.name.lower()]
+    spans = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and name in e.name.lower():
+            key = re.search(r"\w*kernel\w*", e.name)
+            key = key.group(0) if key else e.name[:60]
+            spans[key] = spans.get(key, 0.0) + e.time_range.end - e.time_range.start
     need(spans, f"torch.profiler traced no device kernel named {name}")
-    return sum(spans) / 1e3 / iters
+    return {k: v / 1e3 / iters for k, v in spans.items()}
+
+
+def device_ms(torch, fn, n_inputs: int, name: str, iters: int = 40) -> float:
+    """Device milliseconds per call of ``fn(i)`` in the kernels whose name
+    holds ``name`` (all of a call's kernels summed)."""
+    return sum(device_ms_by_kernel(torch, fn, n_inputs, name, iters).values())
 
 
 def max_err(torch, got, want, dtype: str, tol=None) -> float:
@@ -154,6 +166,7 @@ def bound(nbytes: float, flops: float, dtype: str):
 def check_kernels(torch):
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as fa_k, ref as fa_r
+    from repro_torch.kernels import split_plan as sp
     from repro_torch.kernels.flash_decode import kernel as fd_k, ref as fd_r
     from repro_torch.kernels.rmsnorm import kernel as rms_k, ref as rms_r
     from repro_torch.kernels.ssd_scan import kernel as ssd_k, ref as ssd_r
@@ -164,101 +177,144 @@ def check_kernels(torch):
     B, H, Hkv, D, PAGE, NPT = 8, 12, 2, 128, 16, 128
     S = NPT * PAGE
     COPIES = 8                      # 8 copies of the attention inputs > 50 MB L2
-    rows = {}
+    rows = {"device_ms": {}}
 
     def randn(shape, dt):
         return torch.randn(shape, device=dev, generator=gen).to(dt_of[dt])
 
-    # --- paged flash-decode ------------------------------------------------
-    kv_spread = [0, 1, 17, 300, 777, 1024, 1500, 2048]
+    # --- flash-decode, paged and contiguous ------------------------------------
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     n_pages = B * NPT + 1
-    errs = []
+    kv_spread = [0, 1, 17, 300, 777, 1024, 1500, 2048]
+
+    def page_table(b):
+        return (torch.randperm(n_pages - 1, device=dev, generator=gen)[:b * NPT]
+                + 1).reshape(b, NPT).int()
+
+    def dplan(hkv, kvl, window=None):
+        """The decode split plan the card computes from these lengths."""
+        tgt = fd_k.target(n_sm)
+        tiles = [sp.lane_tiles(n, 1, S, window) for n in kvl]
+        per, n = sp.split_plan(hkv, tiles, tgt, fd_k.max_splits(hkv, S, n_sm))
+        return (f"split plan: live 64-key tiles {tiles}, per {per}, splits per lane "
+                f"{n}, {sp.work_items(hkv, n)} items in a grid of "
+                f"{sp.grid_bound(hkv, len(kvl), tgt)}"
+                + (", combine pass" if max(n) > 1 else ", no combine"))
+
+    # correctness over group sizes, head dims, edge lengths and windows
+    kv_edges = [0, 1, 63, 64, 65, 2047, 2048]
+    errs = {"paged_flash_decode": [], "flash_decode": []}
     for dt in ("bfloat16", "float32"):
+        for G in (4, 6, 8):
+            for d in (64, 128):
+                b, hkv = len(kv_edges), 2
+                q = randn((b, G * hkv, d), dt)
+                kp, vp = (randn((n_pages, PAGE, hkv, d), dt) for _ in range(2))
+                pt = page_table(b)
+                kl = torch.tensor(kv_edges, device=dev, dtype=torch.int32)
+                pe = [max_err(torch, fd_k.paged_flash_decode(q, kp, vp, pt, kl, win),
+                              fd_r.paged_flash_decode_ref(q, kp, vp, pt, kl, win), dt)
+                      for win in (None, 512, 4096)]
+                k, v = (x[pt.long()].reshape(b, S, hkv, d) for x in (kp, vp))
+                ce = max_err(torch, fd_k.flash_decode(q, k, v, kl),
+                             fd_r.flash_decode_ref(q, k, v, kl), dt)
+                print(f"[kernels] decode {dt} G={G} D={d} Hkv={hkv} S={S} "
+                      f"kv_len={kv_edges}: paged (page {PAGE}) max_abs_err at window "
+                      f"None/512/4096 {pe[0]:.3e}/{pe[1]:.3e}/{pe[2]:.3e}, contiguous "
+                      f"{ce:.3e} (tol {TOL[dt]})")
+                if dt == "bfloat16":
+                    errs["paged_flash_decode"] += pe
+                    errs["flash_decode"].append(ce)
+    for dt in ("bfloat16", "float32"):
+        q = randn((B, H, D), dt)
+        kp, vp = randn((n_pages, PAGE, Hkv, D), dt), randn((n_pages, PAGE, Hkv, D), dt)
+        pt = page_table(B)
+        kl = torch.tensor(kv_spread, device=dev, dtype=torch.int32)
         for window in (None, 512):
-            q = randn((B, H, D), dt)
-            kp, vp = randn((n_pages, PAGE, Hkv, D), dt), randn((n_pages, PAGE, Hkv, D), dt)
-            ptab = (torch.randperm(n_pages - 1, device=dev, generator=gen)[:B * NPT]
-                    + 1).reshape(B, NPT).int()
-            kl = torch.tensor(kv_spread, device=dev, dtype=torch.int32)
-            e = max_err(torch, fd_k.paged_flash_decode(q, kp, vp, ptab, kl, window),
-                        fd_r.paged_flash_decode_ref(q, kp, vp, ptab, kl, window), dt)
+            e = max_err(torch, fd_k.paged_flash_decode(q, kp, vp, pt, kl, window),
+                        fd_r.paged_flash_decode_ref(q, kp, vp, pt, kl, window), dt)
             print(f"[kernels] paged_flash_decode {dt} B={B} H={H} Hkv={Hkv} "
                   f"D={D} page={PAGE} kv_len={kv_spread} window={window} "
                   f"max_abs_err={e:.3e} (tol {TOL[dt]})")
             if dt == "bfloat16":
-                errs.append(e)
-    sets = []
-    for _ in range(COPIES):
-        sets.append((randn((B, H, D), "bfloat16"),
-                     randn((n_pages, PAGE, Hkv, D), "bfloat16"),
-                     randn((n_pages, PAGE, Hkv, D), "bfloat16"),
-                     (torch.randperm(n_pages - 1, device=dev, generator=gen)[:B * NPT]
-                      + 1).reshape(B, NPT).int()))
-    kl = torch.tensor(kv_spread, device=dev, dtype=torch.int32)
-    ms = time_ms(torch, lambda i: fd_k.paged_flash_decode(*sets[i], kl), COPIES)
-    plain = time_ms(torch, lambda i: fd_r.paged_flash_decode_ref(*sets[i], kl),
-                    COPIES, iters=10)
-    dense = []
-    for q, kp, vp, pt in sets:          # pre-gathered K/V for the library call
-        kk = kp[pt.long()].reshape(B, S, Hkv, D).transpose(1, 2).contiguous()
-        vv = vp[pt.long()].reshape(B, S, Hkv, D).transpose(1, 2).contiguous()
-        dense.append((q[:, :, None], kk, vv))
-    mask = (torch.arange(S, device=dev)[None, :] < kl[:, None].long())[:, None, None, :]
-    lib = time_ms(torch, lambda i: F.scaled_dot_product_attention(
-        *dense[i], attn_mask=mask, enable_gqa=True), COPIES)
-    live = sum(kv_spread)
-    nbytes = (2 * B * H * D * 2 + B * NPT * 4 + B * 4 + live * Hkv * D * 2 * 2)
-    b_ms, b_by = bound(nbytes, 4.0 * live * H * D, "bfloat16")
-    rows["paged_flash_decode"] = dict(
-        route="cuda", source="src/repro_torch/csrc/paged_flash_decode.cu",
-        replaces="src/repro/kernels/flash_decode/kernel.py:164",
-        max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=b_ms,
-        bound_by=b_by, library_ms=lib)
-    print(f"[kernels] paged_flash_decode bf16 timed at kv_len={kv_spread}: "
-          f"{ms:.4f} ms (plain {plain:.4f} ms, SDPA on pre-gathered K/V "
-          f"{lib:.4f} ms, bound {b_ms:.4f} ms by {b_by}); blocks "
-          f"{B * Hkv}×{fd_k.split_plan(B * Hkv, NPT, torch.cuda.get_device_properties(dev).multi_processor_count)}")
-
-    # --- contiguous flash-decode ---------------------------------------------
-    errs = []
-    for dt in ("bfloat16", "float32"):
-        q = randn((B, H, D), dt)
+                errs["paged_flash_decode"].append(e)
         k, v = randn((B, S, Hkv, D), dt), randn((B, S, Hkv, D), dt)
-        kl = torch.tensor(kv_spread, device=dev, dtype=torch.int32)
-        e = max_err(torch, fd_k.flash_decode(q, k, v, kl),
-                    fd_r.flash_decode_ref(q, k, v, kl), dt)
+        e = max_err(torch, fd_k.flash_decode(q, k, v, kl), fd_r.flash_decode_ref(q, k, v, kl), dt)
         print(f"[kernels] flash_decode {dt} B={B} H={H} Hkv={Hkv} D={D} S={S} "
               f"kv_len={kv_spread} max_abs_err={e:.3e} (tol {TOL[dt]})")
         if dt == "bfloat16":
-            errs.append(e)
-    sets = [(randn((B, H, D), "bfloat16"), randn((B, S, Hkv, D), "bfloat16"),
-             randn((B, S, Hkv, D), "bfloat16")) for _ in range(COPIES)]
-    kl = torch.tensor(kv_spread, device=dev, dtype=torch.int32)
-    ms = time_ms(torch, lambda i: fd_k.flash_decode(*sets[i], kl), COPIES)
-    plain = time_ms(torch, lambda i: fd_r.flash_decode_ref(*sets[i], kl),
-                    COPIES, iters=10)
-    dense = [(q[:, :, None], k.transpose(1, 2).contiguous(),
-              v.transpose(1, 2).contiguous()) for q, k, v in sets]
-    mask = (torch.arange(S, device=dev)[None, :] < kl[:, None].long())[:, None, None, :]
-    lib = time_ms(torch, lambda i: F.scaled_dot_product_attention(
-        *dense[i], attn_mask=mask, enable_gqa=True), COPIES)
-    live = sum(kv_spread)
-    nbytes = 2 * B * H * D * 2 + B * 4 + live * Hkv * D * 2 * 2
-    b_ms, b_by = bound(nbytes, 4.0 * live * H * D, "bfloat16")
-    rows["flash_decode"] = dict(
-        route="cuda", source="src/repro_torch/csrc/paged_flash_decode.cu",
-        replaces="src/repro/kernels/flash_decode/kernel.py:74",
-        max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=b_ms,
-        bound_by=b_by, library_ms=lib)
-    n_tiles = -(-S // fd_k.CONTIG_TILE)
-    print(f"[kernels] flash_decode bf16 timed at kv_len={kv_spread}: {ms:.4f} ms "
-          f"(plain {plain:.4f} ms, SDPA with a length mask {lib:.4f} ms, bound "
-          f"{b_ms:.4f} ms by {b_by}); blocks {B * Hkv}×"
-          f"{fd_k.split_plan(B * Hkv, n_tiles, torch.cuda.get_device_properties(dev).multi_processor_count)}")
+            errs["flash_decode"].append(e)
+
+    def time_decode(paged, h, hkv, kvl):
+        """bf16 event and device ms of the kernel and of SDPA (K/V gathered
+        beforehand, a length mask, ``enable_gqa``), the plain version's
+        event ms and the bound, inputs cycled over COPIES."""
+        b = len(kvl)
+        kl = torch.tensor(kvl, device=dev, dtype=torch.int32)
+        if paged:
+            sets = [(randn((b, h, D), "bfloat16"), randn((n_pages, PAGE, hkv, D), "bfloat16"),
+                     randn((n_pages, PAGE, hkv, D), "bfloat16"), page_table(b))
+                    for _ in range(COPIES)]
+            call = lambda i: fd_k.paged_flash_decode(*sets[i], kl)
+            plain = lambda i: fd_r.paged_flash_decode_ref(*sets[i], kl)
+            dense = [(q[:, :, None], *(x[pt.long()].reshape(b, S, hkv, D).transpose(1, 2)
+                                       .contiguous() for x in (kp, vp)))
+                     for q, kp, vp, pt in sets]
+        else:
+            sets = [(randn((b, h, D), "bfloat16"), randn((b, S, hkv, D), "bfloat16"),
+                     randn((b, S, hkv, D), "bfloat16")) for _ in range(COPIES)]
+            call = lambda i: fd_k.flash_decode(*sets[i], kl)
+            plain = lambda i: fd_r.flash_decode_ref(*sets[i], kl)
+            dense = [(q[:, :, None], k.transpose(1, 2).contiguous(),
+                      v.transpose(1, 2).contiguous()) for q, k, v in sets]
+        mask = (torch.arange(S, device=dev)[None, :] < kl[:, None].long())[:, None, None, :]
+        sdpa = lambda i: F.scaled_dot_product_attention(*dense[i], attn_mask=mask,
+                                                        enable_gqa=True)
+        live = sum(kvl)
+        nbytes = (2 * b * h * D * 2 + (b * NPT * 4 if paged else 0) + b * 4
+                  + live * hkv * D * 2 * 2)
+        b_ms, b_by = bound(nbytes, 4.0 * live * h * D, "bfloat16")
+        parts = device_ms_by_kernel(torch, call, COPIES, "decode_")
+        return dict(ms=time_ms(torch, call, COPIES), device_ms=sum(parts.values()),
+                    device_ms_by_kernel=parts,
+                    plain_ms=time_ms(torch, plain, COPIES, iters=10),
+                    library_ms=time_ms(torch, sdpa, COPIES),
+                    library_device_ms=device_ms(torch, sdpa, COPIES, ""),
+                    bound_ms=b_ms, bound_by=b_by)
+
+    def kernel_text(t):
+        return " + ".join(f"{k} {v:.4f}" for k, v in sorted(t["device_ms_by_kernel"].items()))
+
+    serving = {"qwen2 decode": (H, Hkv, [257, 262, 266, 270, 275, 279, 284, 288]),
+               "mixtral decode": (32, 8, [129, 190, 250, 310, 370, 430, 490, 544])}
+    rows["decode_serving"] = {}
+    for name, paged, line in (("paged_flash_decode", True, 164), ("flash_decode", False, 74)):
+        t = time_decode(paged, H, Hkv, kv_spread)
+        rows[name] = dict(
+            route="cuda", source="src/repro_torch/csrc/paged_flash_decode.cu",
+            replaces=f"src/repro/kernels/flash_decode/kernel.py:{line}",
+            max_abs_err=max(errs[name]), **{k: t[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+        rows["device_ms"].update({name: t["device_ms"],
+                                  f"{name}_sdpa": t["library_device_ms"]})
+        print(f"[kernels] {name} bf16 timed at B={B} H={H} Hkv={Hkv} D={D} S={S} "
+              f"kv_len={kv_spread}: {t['ms']:.4f} ms (device {t['device_ms']:.4f} ms "
+              f"per launch, torch.profiler, {kernel_text(t)}; plain {t['plain_ms']:.4f} ms, SDPA on "
+              f"pre-gathered K/V with a length mask {t['library_ms']:.4f} ms, device "
+              f"{t['library_device_ms']:.4f} ms per call; bound {t['bound_ms']:.5f} ms "
+              f"by {t['bound_by']}); {dplan(Hkv, kv_spread)}")
+        for shape, (h, hkv, kvl) in serving.items():
+            t = time_decode(paged, h, hkv, kvl)
+            rows["decode_serving"][f"{name} {shape}"] = t
+            print(f"[kernels] {name} bf16 at the {shape} shape (B={len(kvl)} H={h} "
+                  f"Hkv={hkv} D={D} S={S} kv_len={kvl}): {t['ms']:.4f} ms (device "
+                  f"{t['device_ms']:.4f} ms per launch, {kernel_text(t)}; plain {t['plain_ms']:.4f} ms, "
+                  f"SDPA {t['library_ms']:.4f} ms, device {t['library_device_ms']:.4f} "
+                  f"ms per call; bound {t['bound_ms']:.5f} ms by {t['bound_by']}); "
+                  f"{dplan(hkv, kvl)}")
+    torch.cuda.empty_cache()
 
     # --- flash attention ----------------------------------------------------
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-
     def fa_case(Sq, kvl, causal, window, cap, dt):
         q = randn((B, Sq, H, D), dt)
         k, v = randn((B, S, Hkv, D), dt), randn((B, S, Hkv, D), dt)
@@ -385,7 +441,7 @@ def check_kernels(torch):
         ms=s_ms, device_ms=s_dev, plain_ms=s_plain, library_ms=s_lib,
         library_device_ms=s_lib_dev, library_gather_ms=s_lib_g, bound_ms=sb_ms,
         bound_by=sb_by)
-    rows["device_ms"] = {"flash_attention": dev_ms, "flash_attention_sdpa": lib_dev}
+    rows["device_ms"].update(flash_attention=dev_ms, flash_attention_sdpa=lib_dev)
     print(f"[kernels] flash_attention bf16 at the serving shape (paged pools of {B} "
           f"lanes × {S} keys, page {PAGE}, one active lane kv_len={live} Sq=64, "
           f"{B - 1} at 0): {s_ms:.4f} ms (device {s_dev:.4f} ms per launch; plain "
@@ -467,6 +523,9 @@ def check_kernels(torch):
                 errs.append(e)
     sets = [ssd_case(1, 64, "bfloat16") for _ in range(COPIES)]
     ms = time_ms(torch, lambda i: ssd_k.ssd_scan(*sets[i]), COPIES, iters=100)
+    ssd_dev = device_ms(torch, lambda i: ssd_k.ssd_scan(*sets[i]), COPIES, "ssd_scan",
+                        iters=100)
+    rows["device_ms"]["ssd_scan"] = ssd_dev
     plain = time_ms(torch, lambda i: ssd_r.ssd_scan_ref(*sets[i][:5], 64, sets[i][5]),
                     COPIES, iters=20)
     big = [ssd_case(8, 1024, "bfloat16") for _ in range(2)]
@@ -483,11 +542,13 @@ def check_kernels(torch):
         max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=b_ms,
         bound_by=b_by, library_ms=None)
     print(f"[kernels] ssd_scan bf16 timed at b=1 s=64 (one prefill chunk of one "
-          f"lane, nonzero state): {ms:.4f} ms (plain {plain:.4f} ms, bound "
+          f"lane, nonzero state): {ms:.4f} ms (device {ssd_dev:.4f} ms per launch; "
+          f"plain {plain:.4f} ms, bound "
           f"{b_ms:.5f} ms by {b_by}); at b=8 s=1024: {ms_big:.4f} ms; library: "
           f"none (no single PyTorch call computes the SSD scan with its state); "
           f"grid {SH}×{b} blocks")
     rows["moe_gmm"], rows["moe_gmm_shapes"] = check_moe_gmm(torch, gen)
+    rows["device_ms"]["moe_gmm"] = rows["moe_gmm_shapes"][8]["device_ms"]
     return rows
 
 
@@ -543,15 +604,17 @@ def check_moe_gmm(torch, gen):
             return torch.bmm(h, w[2])
 
         ms = time_ms(torch, lambda i: moe_k.moe_gmm(x, *w), 1, iters=20)
+        dev_ms = device_ms(torch, lambda i: moe_k.moe_gmm(x, *w), 1, "moe_gmm", iters=20)
         plain = time_ms(torch, lambda i: moe_r.moe_gmm_ref(x, *w), 1, iters=20)
         chain_ms = time_ms(torch, chain, 1, iters=20)
         x_bytes = (1 if shared else E) * C * D * 2
         nbytes = x_bytes + 3 * E * D * FF * 2 + E * C * D * 2
         b_ms, b_by = bound(nbytes, 2.0 * 3 * E * C * D * FF, "bfloat16")
-        timed[C] = dict(ms=ms, plain_ms=plain, chain_ms=chain_ms, bound_ms=b_ms,
-                        bound_by=b_by)
+        timed[C] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain, chain_ms=chain_ms,
+                        bound_ms=b_ms, bound_by=b_by)
         tile = 16 if C <= 32 else 128
-        print(f"[kernels] moe_gmm bf16 timed at C={C}: {ms:.4f} ms (plain "
+        print(f"[kernels] moe_gmm bf16 timed at C={C}: {ms:.4f} ms (device "
+              f"{dev_ms:.4f} ms per launch; plain "
               f"{plain:.4f} ms, bound {b_ms:.4f} ms by {b_by}; "
               f"{nbytes / ms / 1e6:.1f} GB/s, {6 * E * C * D * FF / ms / 1e9:.1f} "
               f"TFLOP/s; context, not a library call: the torch.bmm chain "
@@ -604,7 +667,7 @@ def profile_steps(torch, eng, n: int, prepare=None):
     groups = {}
     for s_, e_, name in spans:
         low = name.lower()
-        g = ("flash_decode (split + combine)" if "decode_" in low else
+        g = ("flash_decode" if "decode_" in low else
              "flash_attention" if "flash_attention" in low else
              "ssd_scan" if "ssd_scan" in low else
              "moe_gmm" if "moe_gmm" in low else
@@ -1329,6 +1392,7 @@ def main(argv=None) -> int:
     # phase 2: build
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import kernel as fa_k
+    from repro_torch.kernels.flash_decode import kernel as fd_k
     t0 = time.monotonic()
     build.build(SOURCES)
     print(f"[build] nvcc ({len(SOURCES)} sources in parallel) "
@@ -1338,9 +1402,9 @@ def main(argv=None) -> int:
             print(f"[build] {src}: {kernel} {regs} registers, {spills}")
     # dynamic shared memory per block, from the kernels' layouts at the
     # main paths' shapes (ptxas reports static shared memory only)
-    G, D, T, P, N, LC = 6, 128, 16, 64, 128, 32
-    smem = {"decode_split_kernel (G=6, D=128, 16-row tiles)":
-            4 * (2 * G * D + T * (2 * D + 1) + G * T + 3 * G),
+    D, P, N, LC = 128, 64, 128, 32
+    smem = {"decode_split_tc_kernel (bf16, D=128)": fd_k.smem_bytes(torch.bfloat16, D),
+            "decode_split_simt_kernel (f32, D=128)": fd_k.smem_bytes(torch.float32, D),
             "flash_attention_tc_kernel (bf16, D=128)":
             fa_k.smem_bytes(torch.bfloat16, D),
             "flash_attention_simt_kernel (f32, D=128)":
@@ -1359,6 +1423,7 @@ def main(argv=None) -> int:
     # phase 3
     rows = check_kernels(torch)
     print(json.dumps({"flash_attention_serving": rows["flash_attention_serving"],
+                      "decode_serving": rows["decode_serving"],
                       "device_ms_per_launch": rows["device_ms"], "card": card}))
     if args.only == "kernels":
         return 0
@@ -1397,6 +1462,7 @@ def main(argv=None) -> int:
                       "contiguous_qwen2": contig_metrics, "migration": migration,
                       "mixtral": mixtral, "moe_gmm_shapes": rows["moe_gmm_shapes"],
                       "flash_attention_serving": rows["flash_attention_serving"],
+                      "decode_serving": rows["decode_serving"],
                       "device_ms_per_launch": rows["device_ms"], "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -127,6 +127,156 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// (a, b) as bf16x2 hi plus bf16x2 lo = (a, b) - hi, first value in the low
+// half: P enters P.V as two products and keeps ~16 bits.
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// --- The split plan over live key tiles (flash attention and decode) ------ //
+//
+// A launch covers B lanes; lane b holds kv_len[b] keys and its Sq queries
+// sit at positions kv_len[b] - Sq .. kv_len[b] - 1.  T_b is the number of
+// 64-key tiles holding a key that some query of the lane may see (below
+// min(kv_len, Sk); with a window, not wholly below the first query's
+// reach).  With `pairs` (row block, KV head) pairs per lane:
+//   per = max(1, ceil(pairs * sum_b T_b / target), ceil(max_b T_b / n_cap))
+//         tiles per split,
+//   n_b = ceil(T_b / per) splits for each pair of lane b (so at most n_cap;
+//         n_cap = 1: no split, n_b = min(T_b, 1)),
+// and a split takes an even share, ceil(T_b / n_b) <= per tiles, of its
+// pair's.
+// Work items are numbered lane by lane, then pair, then split; a pair of an
+// idle lane (T_b = 0) still gets one item, which writes its zeros.  So a
+// launch has at most target + pairs * B items, the host's grid; blocks past
+// the last item exit at once.  Every block computes the plan from kv_len on
+// the card: no length crosses to the host.  kernels/split_plan.py mirrors
+// it on the host.
+
+constexpr int kPlanTile = 64;
+
+__host__ __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+__device__ __forceinline__ int tiles_of(int lo, int hi) {
+  return hi > lo ? cdiv(hi, kPlanTile) - lo / kPlanTile : 0;
+}
+
+struct Plan {
+  const int* kv_len;
+  int B, Sq, Sk, window;    // window <= 0: none
+  int pairs, target, n_cap;
+};
+
+// Keys [lo, hi) that some query of a lane with kv_len = len may see.
+__device__ __forceinline__ void lane_keys(const Plan& p, int len, int& lo, int& hi) {
+  hi = min(len, p.Sk);
+  lo = p.window > 0 ? max(0, len - p.Sq - p.window + 1) : 0;
+}
+
+__device__ __forceinline__ int lane_tiles(const Plan& p, int len) {
+  int lo, hi;
+  lane_keys(p, len, lo, hi);
+  return tiles_of(lo, hi);
+}
+
+// The functions below are computed by a whole warp (every lane calls them
+// together, with the same arguments, and gets the same answer): lane i
+// reads the lengths of lanes i, i + 32, ..., and shuffles combine them, so
+// the plan costs one round of loads however many lanes there are.
+
+__device__ __forceinline__ int plan_per(const Plan& p) {
+  long long w = 0;
+  int most = 0;
+  for (int i = threadIdx.x & 31; i < p.B; i += 32) {
+    const int t = lane_tiles(p, __ldg(p.kv_len + i));
+    w += t;
+    most = max(most, t);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    w += __shfl_xor_sync(0xffffffffu, w, o);
+    most = max(most, __shfl_xor_sync(0xffffffffu, most, o));
+  }
+  w *= p.pairs;
+  return (int)max(max(1LL, (w + p.target - 1) / p.target), (long long)cdiv(most, p.n_cap));
+}
+
+__device__ __forceinline__ int lane_splits(const Plan& p, int len, int per) {
+  return cdiv(lane_tiles(p, len), per);
+}
+
+// Work item v: lane b (kv_len len), its pair, split s of the lane's n, and
+// slot0, the item of split 0 of this pair (partials are stored by item).
+struct PlanItem {
+  int b, len, pair, s, n, slot0;
+};
+
+// False past the last item.  32 lanes at a time: an inclusive scan of the
+// lanes' item counts, and a ballot finds the lane whose items hold v.
+__device__ __forceinline__ bool plan_item(const Plan& p, int v, PlanItem& it) {
+  const int per = plan_per(p);
+  const int lane = threadIdx.x & 31;
+  int base = 0;
+  for (int b0 = 0; b0 < p.B; b0 += 32) {
+    const bool in = b0 + lane < p.B;
+    const int len = in ? __ldg(p.kv_len + b0 + lane) : 0;
+    const int n = lane_splits(p, len, per);
+    const int cnt = in ? p.pairs * max(n, 1) : 0;
+    int end = cnt;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int t = __shfl_up_sync(0xffffffffu, end, o);
+      if (lane >= o) end += t;
+    }
+    end += base;
+    const unsigned hit = __ballot_sync(0xffffffffu, in && v < end);
+    if (hit) {
+      const int src = __ffs(hit) - 1;
+      it.b = b0 + src;
+      it.len = __shfl_sync(0xffffffffu, len, src);
+      it.n = __shfl_sync(0xffffffffu, n, src);
+      const int first = __shfl_sync(0xffffffffu, end - cnt, src);
+      const int m = max(it.n, 1);
+      it.pair = (v - first) / m;
+      it.s = v - first - it.pair * m;
+      it.slot0 = first + it.pair * m;
+      return true;
+    }
+    base = __shfl_sync(0xffffffffu, end, 31);
+  }
+  return false;
+}
+
+// The splits n of lane b and the item of split 0 of its pair `pair` (what a
+// combine pass reads).
+__device__ __forceinline__ int plan_lane(const Plan& p, int b, int pair, int& slot0) {
+  const int per = plan_per(p);
+  int base = 0;
+  for (int i = threadIdx.x & 31; i < b; i += 32)
+    base += p.pairs * max(lane_splits(p, __ldg(p.kv_len + i), per), 1);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) base += __shfl_xor_sync(0xffffffffu, base, o);
+  const int n = lane_splits(p, __ldg(p.kv_len + b), per);
+  slot0 = base + pair * max(n, 1);
+  return n;
+}
+
+// Tiles [begin, end) of split s of n over the T tiles from t0 (n <= 1: all).
+__device__ __forceinline__ void split_tiles(int t0, int T, int n, int s, int& begin, int& end) {
+  if (n <= 1) {
+    begin = t0;
+    end = t0 + T;
+    return;
+  }
+  const int q = cdiv(T, n);
+  begin = t0 + s * q;
+  end = min(t0 + T, begin + q);
+}
+
 }  // namespace repro
 
 extern "C" const char* repro_error_string(int err) {

@@ -53,7 +53,9 @@
 //   finishes the rows; with n_b <= 1 the block writes the output directly,
 //   and when the host can tell that no lane will split (the grid already
 //   fills the card, or Sk fits one tile) no combine is launched.  The plan
-//   is computed on the card from kv_len, so no length crosses to the host.
+//   is computed on the card from kv_len, so no length crosses to the host;
+//   its arithmetic lives in common.cuh, shared with the decode kernels
+//   (n_cap never binds here: pairs * n_cap >= target).
 
 #include <stddef.h>
 #include <stdint.h>
@@ -65,6 +67,7 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
+using repro::cdiv;
 using repro::cp_async16;
 using repro::cp_async_commit;
 using repro::cp_async_wait;
@@ -73,10 +76,12 @@ using repro::ldmatrix_x4;
 using repro::ldmatrix_x4_trans;
 using repro::mma_bf16;
 using repro::Pack8;
+using repro::split_bf16;
+using repro::tiles_of;
 
 constexpr int kThreads = 128;
 constexpr int kRows = 64;     // flattened (query, head-in-group) rows per block
-constexpr int kTile = 64;     // keys per tile, the unit of the split plan
+constexpr int kTile = repro::kPlanTile;   // keys per tile, the unit of the split plan
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -95,7 +100,11 @@ struct Args {
   float softcap, scale;
 };
 
-__host__ __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
+// The launch's split plan (common.cuh) with `pairs` (row block, KV head)
+// pairs per lane.
+__device__ __forceinline__ repro::Plan plan_of(const Args& a, int pairs) {
+  return repro::Plan{a.kv_len, a.B, a.Sq, a.Sk, a.window, pairs, a.target, a.n_cap};
+}
 
 // Keys [lo, hi) that some query at positions [qmin, qmax] of a row with
 // kv_len = len may see.
@@ -104,16 +113,6 @@ __device__ __forceinline__ void key_range(const Args& a, int len, int qmin, int 
   hi = min(len, a.Sk);
   if (a.causal) hi = min(hi, qmax + 1);
   lo = a.window > 0 ? max(0, qmin - a.window + 1) : 0;
-}
-
-__device__ __forceinline__ int tiles_of(int lo, int hi) {
-  return hi > lo ? cdiv(hi, kTile) - lo / kTile : 0;
-}
-
-__device__ __forceinline__ int lane_tiles(const Args& a, int len) {
-  int lo, hi;
-  key_range(a, len, len - a.Sq, len - 1, lo, hi);
-  return tiles_of(lo, hi);
 }
 
 // One work item: rows [r0, r0 + 64) of KV head kvh of lane b, key tiles
@@ -125,18 +124,6 @@ struct Work {
   int slot;
 };
 
-__device__ __forceinline__ int plan_per(const Args& a, int pairs) {
-  long long w = 0;
-  for (int i = 0; i < a.B; ++i) w += lane_tiles(a, __ldg(a.kv_len + i));
-  w *= pairs;
-  return (int)max(1LL, (w + a.target - 1) / a.target);
-}
-
-__device__ __forceinline__ int lane_splits(const Args& a, int len, int per) {
-  const int t = lane_tiles(a, len);
-  return a.n_cap > 1 ? min(cdiv(t, per), a.n_cap) : min(t, 1);
-}
-
 // Row block rb, KV head kvh, lane b with n splits: its key range and tiles.
 __device__ __forceinline__ void block_range(const Args& a, Work& w, int rb, int n, int s,
                                             int slot0) {
@@ -144,18 +131,8 @@ __device__ __forceinline__ void block_range(const Args& a, Work& w, int rb, int 
   const int r1 = min(w.r0 + kRows, w.nrows);
   key_range(a, w.len, w.len - a.Sq + w.r0 / w.G, w.len - a.Sq + (r1 - 1) / w.G,
             w.k_lo, w.k_hi);
-  const int t0 = w.k_lo / kTile;
-  const int T = tiles_of(w.k_lo, w.k_hi);
-  if (n <= 1) {
-    w.t_begin = t0;
-    w.t_end = t0 + T;
-    w.slot = -1;
-  } else {
-    const int per = cdiv(T, n);
-    w.t_begin = t0 + s * per;
-    w.t_end = min(t0 + T, w.t_begin + per);
-    w.slot = slot0 + s;
-  }
+  repro::split_tiles(w.k_lo / kTile, tiles_of(w.k_lo, w.k_hi), n, s, w.t_begin, w.t_end);
+  w.slot = n <= 1 ? -1 : slot0 + s;
 }
 
 // Work item v of the launch (items numbered lane by lane, then (row block,
@@ -164,27 +141,14 @@ __device__ __forceinline__ void block_range(const Args& a, Work& w, int rb, int 
 __device__ bool plan_item(const Args& a, int v, Work& w) {
   w.G = a.H / a.Hkv;
   w.nrows = a.Sq * w.G;
-  const int n_rb = cdiv(w.nrows, kRows);
-  const int pairs = n_rb * a.Hkv;
-  const int per = plan_per(a, pairs);
-  int base = 0;
-  for (int b = 0; b < a.B; ++b) {
-    const int len = __ldg(a.kv_len + b);
-    const int n = lane_splits(a, len, per);
-    const int m = max(n, 1);
-    if (v < base + pairs * m) {
-      const int local = v - base;
-      const int pair = local / m;
-      const int s = local - pair * m;
-      w.b = b;
-      w.len = len;
-      w.kvh = pair % a.Hkv;
-      block_range(a, w, pair / a.Hkv, n, s, base + pair * m);
-      return w.slot < 0 || w.t_begin < w.t_end;
-    }
-    base += pairs * m;
-  }
-  return false;
+  const int pairs = cdiv(w.nrows, kRows) * a.Hkv;
+  repro::PlanItem it;
+  if (!repro::plan_item(plan_of(a, pairs), v, it)) return false;
+  w.b = it.b;
+  w.len = it.len;
+  w.kvh = it.pair % a.Hkv;
+  block_range(a, w, it.pair / a.Hkv, it.n, it.s, it.slot0);
+  return w.slot < 0 || w.t_begin < w.t_end;
 }
 
 // Offset of key j's row of KV head kvh in k/v (elements).
@@ -225,14 +189,6 @@ __device__ __forceinline__ bool key_visible(const Args& a, int len, int qpos, in
 // bf16: tensor cores
 // --------------------------------------------------------------------------
 
-// (a, b) as bf16x2 hi plus bf16x2 lo = (a, b) - hi, first value in the low half.
-__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  const float2 hf = __bfloat1622float2(h);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
-}
 template <int D>
 struct TcLayout {
   static constexpr int kLd = D + 8;          // bf16 row pitch, 16-byte pad
@@ -642,15 +598,10 @@ __global__ void __launch_bounds__(kCombThreads) flash_attention_combine_kernel(c
   const int sub = blockIdx.x - rb * (kRows / kCombRows);
   w.b = blockIdx.y / a.Hkv;
   w.kvh = blockIdx.y - w.b * a.Hkv;
-  const int per = plan_per(a, pairs);
-  int base = 0, n = 0;
-  for (int b = 0; b <= w.b; ++b) {
-    n = lane_splits(a, __ldg(a.kv_len + b), per);
-    if (b < w.b) base += pairs * max(n, 1);
-  }
+  int slot0;
+  const int n = repro::plan_lane(plan_of(a, pairs), w.b, rb * a.Hkv + w.kvh, slot0);
   if (n <= 1) return;                        // written by the split kernel
   w.len = __ldg(a.kv_len + w.b);
-  const int slot0 = base + (rb * a.Hkv + w.kvh) * n;
   block_range(a, w, rb, n, 0, slot0);
   const int n_tiles = tiles_of(w.k_lo, w.k_hi);
   const int per_rb = cdiv(n_tiles, n);

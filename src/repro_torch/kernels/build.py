@@ -27,6 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "-lineinfo")
 
 _libs: Dict[str, ctypes.CDLL] = {}
+_sm_counts: Dict[int, int] = {}
 _lock = threading.Lock()
 
 
@@ -120,6 +121,15 @@ def stream(t: torch.Tensor) -> int:
     launcher: ``torch.cuda.current_stream(t.device).cuda_stream`` without
     building a ``Stream`` object on every launch."""
     return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
+def sm_count(dev: int) -> int:
+    """Streaming multiprocessors of CUDA device ``dev``, queried once."""
+    n = _sm_counts.get(dev)
+    if n is None:
+        n = _sm_counts[dev] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return n
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

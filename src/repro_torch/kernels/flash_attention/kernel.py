@@ -21,7 +21,8 @@ tensor cores (``mma.sync`` m16n8k16, K/V tiles of 64 keys in a 2-stage
 softmax and masks in f32);
 f32 runs on the CUDA cores (its 2e-5 tolerance rules out TF32).  A key
 split fills the card when few lanes have work: every block computes the
-same plan from ``kv_len`` on the card (:func:`split_plan`), splits write
+same plan from ``kv_len`` on the card (``csrc/common.cuh``, shared with
+flash-decode; :mod:`repro_torch.kernels.split_plan` mirrors it), splits write
 partial (m, l, acc) rows in f32 to scratch allocated here, and a combine
 pass finishes them; with no split the kernel writes the output itself and
 no combine runs.  One call is one count in ``launches``.
@@ -35,6 +36,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import split_plan as plan
+from repro_torch.kernels.split_plan import TILE, lane_tiles  # noqa: F401
 
 launches = 0          # kernel launches since the last reset (main-path check)
 
@@ -42,12 +45,10 @@ _NAME = "flash_attention"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128)
 ROWS = 64             # flattened (query, head-in-group) rows per block
-TILE = 64             # keys per tile, the split plan's unit
 BLOCKS_PER_SM = 2     # what the split plan aims at: the bf16 kernel's
                       # 87 KB of shared memory and 241 registers fit two
                       # blocks on an SM, so this is one wave
 _fn = None
-_sm_counts = {}
 
 
 def _launcher():
@@ -71,46 +72,18 @@ def smem_bytes(dtype: torch.dtype, head_dim: int) -> int:
     return int(lib.flash_attention_smem_bytes(_DTYPE_CODE[dtype], head_dim))
 
 
-def lane_tiles(kv_len: int, Sq: int, Sk: int, window: Optional[int]) -> int:
-    """Key tiles of TILE keys that some query of a lane may see (the
-    kernel's ``lane_tiles``; the same with and without the causal mask,
-    since the last query sits at ``kv_len − 1``)."""
-    hi = min(kv_len, Sk)
-    lo = max(0, kv_len - Sq - window + 1) if window else 0
-    return -(-hi // TILE) - lo // TILE if hi > lo else 0
-
-
 def max_splits(pairs: int, Sk: int, n_sm: int) -> int:
-    """The most splits the plan can give a lane: ``pairs`` (row blocks ×
-    KV heads) times it stays near the target, and it never exceeds the
-    tiles of ``Sk`` keys.  1 means no lane splits and no combine runs."""
-    return max(1, min(-(-Sk // TILE), -(-BLOCKS_PER_SM * n_sm // pairs)))
+    """The most splits the plan can give a lane at this kernel's target
+    (:func:`repro_torch.kernels.split_plan.max_splits`)."""
+    return plan.max_splits(pairs, Sk, BLOCKS_PER_SM * n_sm)
 
 
 def split_plan(pairs: int, lane_tiles: Sequence[int], n_sm: int,
                n_cap: Optional[int] = None) -> Tuple[int, list]:
-    """The kernel's split plan: (tiles per split, splits of each lane).
-
-    ``W = pairs · Σ lane_tiles`` tile visits; ``per = max(1, ⌈W / target⌉)``
-    with ``target = BLOCKS_PER_SM · n_sm``; lane b gives each of its
-    ``pairs`` (row block, KV head) ``⌈T_b / per⌉`` splits, at most
-    ``n_cap`` (default ⌈target / pairs⌉, which the count never exceeds;
-    ``n_cap = 1``: no split, 1 for a lane with work).  Mirrors
-    ``plan_per``/``lane_splits`` in ``csrc/flash_attention.cu``."""
-    target = BLOCKS_PER_SM * n_sm
-    if n_cap is None:
-        n_cap = -(-target // pairs)
-    per = max(1, -(-pairs * sum(lane_tiles) // target))
-    return per, [min(-(-t // per), n_cap) if n_cap > 1 else min(t, 1)
-                 for t in lane_tiles]
-
-
-def _sm_count(dev: int) -> int:
-    n = _sm_counts.get(dev)
-    if n is None:
-        n = _sm_counts[dev] = torch.cuda.get_device_properties(
-            dev).multi_processor_count
-    return n
+    """The kernel's split plan, (tiles per split, splits of each lane), at
+    ``target = BLOCKS_PER_SM · n_sm``
+    (:func:`repro_torch.kernels.split_plan.split_plan`)."""
+    return plan.split_plan(pairs, lane_tiles, BLOCKS_PER_SM * n_sm, n_cap)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -172,11 +145,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     if B * Sq * H == 0:
         return out
-    n_sm = _sm_count(dev)
+    n_sm = build.sm_count(dev)
     pairs = -(-Sq * (H // Hkv) // ROWS) * Hkv
     target = BLOCKS_PER_SM * n_sm
-    grid = target + pairs * B
-    n_cap = max_splits(pairs, Sk, n_sm)
+    grid = plan.grid_bound(pairs, B, target)
+    n_cap = plan.max_splits(pairs, Sk, target)
     if n_cap > 1:          # partial acc [grid][ROWS][D], then (m, l) [grid][ROWS][2]
         part = torch.empty((grid * ROWS * (D + 2),), dtype=torch.float32,
                            device=q.device)

@@ -4,45 +4,70 @@
 :func:`paged_flash_decode` replaces the TPU kernel
 ``src/repro/kernels/flash_decode/kernel.py::paged_flash_decode_kernel``
 (body ``_paged_decode_kernel``): one-token GQA decode over a block-paged KV
-pool, online softmax in f32, dead pages skipped, ``acc / max(l, 1e-30)``.
-:func:`flash_decode` replaces ``flash_decode_kernel`` (body
-``_decode_kernel``), the same over a contiguous ``(B, S, Hkv, D)`` cache
-with a ``kv_len`` mask; it is the paged kernel's split and combine passes
-with a contiguous addressing mode (tile ``p`` of lane ``b`` is rows
-``b·S + p·tile …`` by stride), not an identity page table.
+pool, keys below ``kv_len`` and, with a window, at or above ``kv_len −
+window``, online softmax in f32, ``acc / max(l, 1e-30)`` (0 for a lane
+with ``kv_len = 0``).  :func:`flash_decode` replaces
+``flash_decode_kernel`` (body ``_decode_kernel``), the same over a
+contiguous ``(B, S, Hkv, D)`` cache; one kernel body serves both, with a
+contiguous addressing mode (key j of lane b is row ``b·S + j``, by stride),
+not an identity page table.
 
-Bound on the card: bytes.  Each lane streams its live K/V pages once and
-does ~4·G flops per element read (G = H/Hkv query heads share one K/V
-stream), far below the ~295 flop/byte the H100 needs to be compute-bound.
-Design: one block per (batch lane, KV head) handles the lane's whole GQA
-group against one un-repeated K/V stream, so each K/V byte is read once for
-all G heads.  The page id comes from ``ptab`` inside the kernel, per page —
-no contiguous copy.  ``B·Hkv`` blocks alone would leave most of the 132 SMs
-idle (16 blocks at B = 8, Hkv = 2), so the pages of a lane are split over
-``n_splits`` blocks (split-K); each writes a partial (m, l, acc) in f32 and
-a second, small kernel combines them.  Splits whose pages are all dead
-(past ``kv_len`` or below the window) exit at once.  The next page is
-fetched with 16-byte loads while the current one is processed from shared
-memory (f32); scores and the P·V product run on the CUDA cores.
+Bound on the card: bytes (each live K/V element is read once for the G =
+H/Hkv query heads of its group, ~4·G flops per element), but at the serving
+shapes the bytes take ~2 µs and the time is latency: the longest chain of
+tile steps in one block, plus the launches.  Design:
+
+* **The split plan over live tiles, made on the card** (``csrc/common.cuh``,
+  shared with flash attention; :mod:`repro_torch.kernels.split_plan` mirrors
+  it here for the grid bound).  Every block reads ``kv_len``: T_b live
+  64-key tiles of lane b (counting the window), ``per = max(1, ⌈Hkv·ΣT_b /
+  target⌉, ⌈max T_b / 16⌉)``, ``⌈T_b / per⌉`` splits for each KV head of
+  lane b (so at most 16, which bounds the combine).  A block
+  takes one (lane, KV head) and at most ``per`` tiles; the grid is
+  ``target + Hkv·B`` and blocks past the last item exit at once.  An idle
+  (lane, KV head) gets one item that writes its zeros; a lane with one
+  split writes its output directly; split lanes write partial (m, l, acc)
+  rows in f32 to scratch allocated here, and the last split of a (lane,
+  KV head) to finish, found by a counter the kernel resets, combines them
+  (a warp per query head).  One launch per call; no length crosses to the
+  host.
+* **bf16 on the tensor cores.**  The group's G ≤ 16 query rows are one
+  ``mma.sync`` m16 A fragment, kept in registers; each of 4 warps streams
+  16 keys of every 64-key tile through its own 2-stage ``cp.async`` ring
+  and runs S = Q·Kᵀ and O += P·V (P as bf16 hi and lo halves) with its own
+  online softmax in f32; the block merges its warps once, at the end.
+* **f32 on the CUDA cores** under the same plan (its 2e-5 tolerance rules
+  out TF32).
+
+Head dims 64 and 128 (what the served models use) and G ≤ 16; the paged
+pool's page is a power of two.  One call is one count in ``launches`` /
+``contig_launches``.
 """
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import split_plan as plan
 
 launches = 0          # paged kernel launches since the last reset
 contig_launches = 0   # contiguous kernel launches since the last reset
 
 _NAME = "paged_flash_decode"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-CONTIG_TILE = 16      # cache rows per tile of the contiguous mode
+HEAD_DIMS = (64, 128)
+MAX_GROUP = 16        # query heads per KV head: one m16 fragment
+BLOCKS_PER_SM = 2     # what the split plan aims at: one wave of two
+                      # blocks per SM
+MAX_SPLITS = 16       # most splits of a lane: the last of them merges
+                      # them all, 8 at a time
 _fn = None
 _contig_fn = None
+_counters = {}        # (device, stream) -> zeroed int32 arrival counters
 
 
 def _launcher():
@@ -50,8 +75,9 @@ def _launcher():
     if _fn is None:
         lib = build.load(_NAME)
         fn = lib.paged_flash_decode
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
-                       + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9
+                       + [ctypes.c_int] * 7 + [ctypes.c_float]
+                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fn = (lib, fn)
     return _fn
@@ -62,74 +88,123 @@ def _contig_launcher():
     if _contig_fn is None:
         lib = build.load(_NAME)
         fn = lib.flash_decode
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
-                       + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
+                       + [ctypes.c_int] * 5 + [ctypes.c_float]
+                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _contig_fn = (lib, fn)
     return _contig_fn
 
 
-def split_plan(batch_heads: int, n_ptab: int, n_sm: int) -> tuple:
-    """(pages_per_split, n_splits) aiming at four blocks per SM."""
-    want = max(1, -(-4 * n_sm // max(batch_heads, 1)))
-    per = max(1, -(-n_ptab // want))
-    return per, -(-n_ptab // per)
+def smem_bytes(dtype: torch.dtype, head_dim: int) -> int:
+    """Dynamic shared memory per block of the split kernel, as the CUDA
+    source lays it out (builds the library)."""
+    lib, _ = _launcher()
+    return int(lib.flash_decode_smem_bytes(_DTYPE_CODE[dtype], head_dim))
 
 
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+def target(n_sm: int) -> int:
+    """Blocks the split plan aims at on a card of ``n_sm`` SMs."""
+    return BLOCKS_PER_SM * n_sm
+
+
+def max_splits(Hkv: int, Sk: int, n_sm: int) -> int:
+    """The plan's ``n_cap``: at most MAX_SPLITS splits a lane, fewer when
+    ``Sk`` keys or the target need fewer; 1 means no lane splits."""
+    return min(plan.max_splits(Hkv, Sk, target(n_sm)), MAX_SPLITS)
+
+
+def _checked(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             ints: Tuple[torch.Tensor, ...]) -> Tuple[int, int, int, int]:
+    """The checks both entry points share, device first (a CPU tensor
+    raises before anything else is looked at); returns (dtype code, B, H,
+    Hkv)."""
+    tensors = (q, k, v) + ints
+    dev = q.get_device()
+    if any(not t.is_cuda or t.get_device() != dev for t in tensors):
+        raise ValueError(f"{name} kernel needs CUDA tensors on one device: "
+                         + ", ".join(str(t.device) for t in tensors))
+    code = _DTYPE_CODE.get(q.dtype)
+    if code is None or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"{name} kernel: q/k/v must share f32 or bf16, got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if any(t.dtype != torch.int32 for t in ints):
+        raise ValueError(f"{name} kernel: ptab and kv_len must be int32")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} kernel: inputs must be contiguous")
+    if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"{name} kernel: bad shapes q {tuple(q.shape)} k "
+                         f"{tuple(k.shape)} v {tuple(v.shape)}")
+    B, H, D = q.shape
+    Hkv = k.shape[2]
+    if k.shape[3] != D or Hkv == 0 or H % Hkv:
+        raise ValueError(f"{name} kernel: inconsistent shapes q "
+                         f"{tuple(q.shape)} k {tuple(k.shape)}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"{name} kernel: head dim {D} not in {HEAD_DIMS} "
+                         f"(gemma2's 256 and zamba2's 112 come with those "
+                         f"models: ROADMAP queue 2 A1/A2)")
+    if H // Hkv > MAX_GROUP:
+        raise ValueError(f"{name} kernel: {H // Hkv} query heads per KV head,"
+                         f" more than one m16 fragment ({MAX_GROUP})")
+    if (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16:
+        raise ValueError(f"{name} kernel: q, k and v must be 16-byte aligned")
+    return code, B, H, Hkv
+
+
+def _scratch(q: torch.Tensor, B: int, H: int, Hkv: int, Sk: int, stream: int):
+    """(target, n_cap, grid, scratch tensor or None, pointers) for a launch
+    on ``stream``: partial (acc, (m, l)) rows of G heads per work item,
+    sized by the grid bound, and the arrival counters of the B·Hkv (lane,
+    KV head) pairs.  The kernel leaves every counter at 0, so they are
+    zeroed once, when allocated, and shared by the calls on the stream."""
+    D, dev = q.shape[2], q.get_device()
+    n_sm = build.sm_count(dev)
+    tgt = target(n_sm)
+    grid = plan.grid_bound(Hkv, B, tgt)
+    n_cap = max_splits(Hkv, Sk, n_sm)
+    if n_cap <= 1:
+        return tgt, n_cap, grid, None, (None, None, None)
+    cnt = _counters.get((dev, stream))      # the default stream is 0 on every device
+    if cnt is None or cnt.numel() < B * Hkv:
+        cnt = _counters[dev, stream] = torch.zeros((max(B * Hkv, 256),),
+                                                   dtype=torch.int32, device=q.device)
+    rows = grid * (H // Hkv)      # acc [grid][G][D], then (m, l) [grid][G][2]
+    part = torch.empty((rows * (D + 2),), dtype=torch.float32, device=q.device)
+    return tgt, n_cap, grid, part, (part.data_ptr(), part.data_ptr() + rows * D * 4,
+                                    cnt.data_ptr())
 
 
 def paged_flash_decode(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
                        ptab: torch.Tensor, kv_len: torch.Tensor,
                        window: Optional[int] = None) -> torch.Tensor:
-    """q (B, H, D); kp, vp (P, page, Hkv, D); ptab (B, n_ptab) int32;
-    kv_len (B,) int32 — all contiguous on one CUDA device, q/kp/vp of one
-    dtype (f32 or bf16).  Returns (B, H, D) in q's dtype."""
+    """q (B, H, D); kp, vp (P, page, Hkv, D), page a power of two; ptab
+    (B, n_ptab) int32; kv_len (B,) int32 — all contiguous on one CUDA
+    device, q/kp/vp of one dtype (f32 or bf16), D in {64, 128}, H/Hkv ≤ 16.
+    Returns (B, H, D) in q's dtype."""
     global launches
-    tensors = (q, kp, vp, ptab, kv_len)
-    if any(t.device.type != "cuda" or t.device != q.device for t in tensors):
-        raise ValueError("paged_flash_decode kernel needs CUDA tensors on one "
-                         "device: " + ", ".join(str(t.device) for t in tensors))
-    if q.dtype not in _DTYPE_CODE or kp.dtype != q.dtype or vp.dtype != q.dtype:
-        raise ValueError(f"paged_flash_decode kernel: q/kp/vp must share f32 "
-                         f"or bf16, got {q.dtype}, {kp.dtype}, {vp.dtype}")
-    if ptab.dtype != torch.int32 or kv_len.dtype != torch.int32:
-        raise ValueError("paged_flash_decode kernel: ptab and kv_len must be int32")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("paged_flash_decode kernel: inputs must be contiguous")
-    if q.dim() != 3 or kp.dim() != 4 or kp.shape != vp.shape:
-        raise ValueError(f"paged_flash_decode kernel: bad shapes q {tuple(q.shape)}"
-                         f" kp {tuple(kp.shape)} vp {tuple(vp.shape)}")
-    B, H, D = q.shape
-    P, page, Hkv, Dk = kp.shape
-    if Dk != D or H % Hkv != 0 or tuple(ptab.shape[:1]) != (B,) \
-            or ptab.dim() != 2 or tuple(kv_len.shape) != (B,):
+    code, B, H, Hkv = _checked("paged_flash_decode", q, kp, vp, (ptab, kv_len))
+    page = kp.shape[1]
+    if ptab.dim() != 2 or ptab.shape[0] != B or tuple(kv_len.shape) != (B,):
         raise ValueError(f"paged_flash_decode kernel: inconsistent shapes q "
-                         f"{tuple(q.shape)} kp {tuple(kp.shape)} ptab "
-                         f"{tuple(ptab.shape)} kv_len {tuple(kv_len.shape)}")
-    if D % 8 or page * D > 4096 or any(t.data_ptr() % 16 for t in (q, kp, vp)):
-        raise ValueError(f"paged_flash_decode kernel: needs D % 8 == 0, "
-                         f"page·D ≤ 4096 and 16-byte aligned q/kp/vp (D={D}, "
-                         f"page={page})")
-    n_ptab = ptab.shape[1]
-    G = H // Hkv
+                         f"{tuple(q.shape)} ptab {tuple(ptab.shape)} kv_len "
+                         f"{tuple(kv_len.shape)}")
+    if page < 1 or page & (page - 1):
+        raise ValueError(f"paged_flash_decode kernel: page size {page} is not "
+                         f"a power of two")
     out = torch.empty_like(q)
-    if B == 0 or n_ptab == 0:
-        return out.zero_()
-    per, n_splits = split_plan(B * Hkv, n_ptab, _sm_count(q.device))
-    part_acc = torch.empty((B * Hkv * n_splits * G * D,), dtype=torch.float32,
-                           device=q.device)
-    part_ml = torch.empty((B * Hkv * n_splits * 2 * G,), dtype=torch.float32,
-                          device=q.device)
-    lib, fn = _launcher()
-    err = fn(_DTYPE_CODE[q.dtype], q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
-             ptab.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
-             part_acc.data_ptr(), part_ml.data_ptr(),
-             B, H, Hkv, D, page, n_ptab, per, n_splits,
-             -1 if window is None else int(window),
-             1.0 / math.sqrt(D), build.stream(q))
-    build.check(lib, err, _NAME)
+    if B == 0:
+        return out
+    n_ptab = ptab.shape[1]
+    stream = build.stream(q)
+    tgt, n_cap, grid, part, parts = _scratch(q, B, H, Hkv, n_ptab * page, stream)
+    lib, fn = _fn or _launcher()
+    err = fn(code, q.data_ptr(), kp.data_ptr(), vp.data_ptr(), ptab.data_ptr(),
+             kv_len.data_ptr(), out.data_ptr(), *parts, B, H, Hkv, q.shape[2],
+             page.bit_length() - 1, n_ptab, -1 if window is None else int(window),
+             1.0 / math.sqrt(q.shape[2]), tgt, n_cap, grid, stream)
+    if err:
+        build.check(lib, err, _NAME)
     launches += 1
     return out
 
@@ -138,49 +213,25 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  kv_len: torch.Tensor) -> torch.Tensor:
     """q (B, H, D); k, v (B, S, Hkv, D) un-repeated; kv_len (B,) int32 with
     values ≤ S — contiguous, on one CUDA device, q/k/v of one dtype (f32 or
-    bf16).  Returns (B, H, D) in q's dtype; zeros for a lane with
-    ``kv_len = 0``."""
+    bf16), D in {64, 128}, H/Hkv ≤ 16.  Returns (B, H, D) in q's dtype;
+    zeros for a lane with ``kv_len = 0``."""
     global contig_launches
-    tensors = (q, k, v, kv_len)
-    if any(t.device.type != "cuda" or t.device != q.device for t in tensors):
-        raise ValueError("flash_decode kernel needs CUDA tensors on one "
-                         "device: " + ", ".join(str(t.device) for t in tensors))
-    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"flash_decode kernel: q/k/v must share f32 or bf16, "
-                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
-    if kv_len.dtype != torch.int32:
-        raise ValueError("flash_decode kernel: kv_len must be int32")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("flash_decode kernel: inputs must be contiguous")
-    if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"flash_decode kernel: bad shapes q {tuple(q.shape)} "
-                         f"k {tuple(k.shape)} v {tuple(v.shape)}")
-    B, H, D = q.shape
-    _, S, Hkv, Dk = k.shape
-    if (k.shape[0] != B or Dk != D or H % Hkv != 0
-            or tuple(kv_len.shape) != (B,)):
+    code, B, H, Hkv = _checked("flash_decode", q, k, v, (kv_len,))
+    if k.shape[0] != B or tuple(kv_len.shape) != (B,):
         raise ValueError(f"flash_decode kernel: inconsistent shapes q "
                          f"{tuple(q.shape)} k {tuple(k.shape)} kv_len "
                          f"{tuple(kv_len.shape)}")
-    if D % 8 or CONTIG_TILE * D > 4096 or any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError(f"flash_decode kernel: needs D % 8 == 0, "
-                         f"{CONTIG_TILE}·D ≤ 4096 and 16-byte aligned q/k/v "
-                         f"(D={D})")
-    G = H // Hkv
     out = torch.empty_like(q)
-    if B == 0 or S == 0:
-        return out.zero_()
-    n_tiles = -(-S // CONTIG_TILE)
-    per, n_splits = split_plan(B * Hkv, n_tiles, _sm_count(q.device))
-    part_acc = torch.empty((B * Hkv * n_splits * G * D,), dtype=torch.float32,
-                           device=q.device)
-    part_ml = torch.empty((B * Hkv * n_splits * 2 * G,), dtype=torch.float32,
-                          device=q.device)
-    lib, fn = _contig_launcher()
-    err = fn(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-             kv_len.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
-             part_ml.data_ptr(), B, H, Hkv, D, S, CONTIG_TILE, per, n_splits,
-             1.0 / math.sqrt(D), build.stream(q))
-    build.check(lib, err, "flash_decode")
+    if B == 0:
+        return out
+    S = k.shape[1]
+    stream = build.stream(q)
+    tgt, n_cap, grid, part, parts = _scratch(q, B, H, Hkv, S, stream)
+    lib, fn = _contig_fn or _contig_launcher()
+    err = fn(code, q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
+             out.data_ptr(), *parts, B, H, Hkv, q.shape[2], S,
+             1.0 / math.sqrt(q.shape[2]), tgt, n_cap, grid, stream)
+    if err:
+        build.check(lib, err, "flash_decode")
     contig_launches += 1
     return out

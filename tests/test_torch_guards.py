@@ -12,7 +12,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core.plan import Plan, ReplicaGroup
-from repro_torch.kernels import build
+from repro_torch.kernels import build, split_plan
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_decode import kernel as fd_kernel
@@ -183,11 +183,43 @@ def test_cuda_build_is_keyed_by_source_and_headers(tmp_path, monkeypatch):
         build.build(["k"])
 
 
-def test_decode_split_plan_fills_the_card():
-    # 16 (lane, KV head) pairs over 128 pages on 132 SMs: 4 pages per split
-    assert fd_kernel.split_plan(16, 128, 132) == (4, 32)
-    assert fd_kernel.split_plan(16, 3, 132) == (1, 3)
-    assert fd_kernel.split_plan(1024, 128, 132) == (128, 1)
+# (kv_len per lane, KV heads, window, tiles per split on 132 SMs)
+DECODE_PLANS = {
+    "timed": ([0, 1, 17, 300, 777, 1024, 1500, 2048], 2, None, 2),
+    "qwen2_decode": ([257, 262, 266, 270, 275, 279, 284, 288], 2, None, 1),
+    "mixtral_decode": ([129, 190, 250, 310, 370, 430, 490, 544], 8, None, 2),
+    "all_idle": ([0] * 8, 2, None, 1),
+    "window": ([0, 1, 17, 300, 777, 1024, 1500, 2048], 8, 512, 2),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DECODE_PLANS))
+def test_decode_split_plan_fills_the_card(case):
+    """The decode kernels' split plan (the card computes it from kv_len;
+    ``split_plan`` mirrors it): at most ``per`` live tiles per split and
+    MAX_SPLITS splits per lane, every live tile of a lane in exactly one
+    split, no split for an idle lane, and every item inside the host's
+    grid."""
+    kv_len, hkv, window, want_per = DECODE_PLANS[case]
+    Sk, T = 2048, split_plan.TILE
+    target = fd_kernel.target(132)
+    tiles = [split_plan.lane_tiles(n, 1, Sk, window) for n in kv_len]
+    n_cap = fd_kernel.max_splits(hkv, Sk, 132)
+    per, splits = split_plan.split_plan(hkv, tiles, target, n_cap)
+    assert per == want_per and max(splits) <= n_cap == fd_kernel.MAX_SPLITS
+    for n, t, kvl in zip(splits, tiles, kv_len):
+        lo, hi = split_plan.lane_keys(kvl, 1, Sk, window)
+        live = [i for i in range(Sk // T) if i * T < hi and i * T + T > lo]
+        assert len(live) == t
+        if t == 0:
+            assert n == 0
+            continue
+        ranges = split_plan.split_tiles(t, n)
+        assert len(ranges) == n and all(0 < e - b <= per for b, e in ranges)
+        covered = [lo // T + i for b, e in ranges for i in range(b, e)]
+        assert covered == live
+    items = split_plan.work_items(hkv, splits)
+    assert hkv * sum(splits) <= items <= split_plan.grid_bound(hkv, len(kv_len), target)
 
 
 def test_flash_attention_split_plan_fills_the_card():

@@ -5,6 +5,8 @@ Inputs come from seeded numpy; tolerances are those of ``test_kernels.py``:
 2e-5 in f32, 2e-2 in bf16.  Lanes with ``kv_len = 0`` are left out of the
 cross-framework comparisons: the port writes zeros there, like the TPU
 kernel, while the JAX gather path gives the mean of fully masked rows."""
+import math
+
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
@@ -15,7 +17,9 @@ from repro.kernels.flash_attention import ops as jfa
 from repro.kernels.flash_decode.kernel import paged_flash_decode_kernel
 from repro.kernels.rmsnorm.kernel import rmsnorm_kernel
 from repro.models import layers as jlayers
+from repro_torch.kernels import split_plan
 from repro_torch.kernels.flash_attention import ops as tfa
+from repro_torch.kernels.flash_decode import kernel as fd_kernel
 from repro_torch.kernels.flash_decode import ops as tfd
 from repro_torch.kernels.rmsnorm import ops as trms
 
@@ -187,3 +191,69 @@ def test_flash_attention_ptab_matches_gather_and_paged_prefill(window, page):
     want = np.asarray(jlayers.sdpa(jnp.asarray(q), jnp.asarray(K), jnp.asarray(V), mask))
     act = lens > 0
     np.testing.assert_allclose(got.numpy()[act], want[act], atol=2e-5, rtol=2e-5)
+
+
+def _decode_by_plan(q, kp, vp, ptab, kv_len, window, n_sm):
+    """What the decode split and combine kernels compute, in f32: the
+    plan mirror cuts each (lane, KV head)'s live keys into splits, each
+    split runs the plain version's arithmetic to a partial (m, l, acc), and
+    the combine's formula merges them; a lane with no live key stays 0."""
+    P, page, Hkv, D = kp.shape
+    B, H, _ = q.shape
+    G, Sk, T = H // Hkv, ptab.shape[1] * page, split_plan.TILE
+    target = fd_kernel.target(n_sm)
+    tiles = [split_plan.lane_tiles(int(n), 1, Sk, window) for n in kv_len]
+    per, splits = split_plan.split_plan(Hkv, tiles, target,
+                                        fd_kernel.max_splits(Hkv, Sk, n_sm))
+    k = kp[ptab.long()].reshape(B, Sk, Hkv, D).float()
+    v = vp[ptab.long()].reshape(B, Sk, Hkv, D).float()
+    out = torch.zeros(B, H, D)
+    for b in range(B):
+        lo, hi = split_plan.lane_keys(int(kv_len[b]), 1, Sk, window)
+        ranges = split_plan.split_tiles(tiles[b], splits[b]) if tiles[b] else []
+        assert all(e - s <= per for s, e in ranges)
+        for h in range(Hkv):
+            qg = q[b, h * G:(h + 1) * G].float()
+            parts = []
+            for s, e in ranges:
+                k0 = max((lo // T + s) * T, lo)
+                k1 = min((lo // T + e) * T, hi)
+                sc = qg @ k[b, k0:k1, h].T * (1.0 / math.sqrt(D))
+                m = sc.amax(-1, keepdim=True)
+                p = torch.exp(sc - m)
+                parts.append((m, p.sum(-1, keepdim=True), p @ v[b, k0:k1, h]))
+            if not parts:
+                continue
+            M = torch.stack([m for m, _, _ in parts]).amax(0)
+            wts = [torch.exp(m - M) for m, _, _ in parts]
+            L = sum(w * l for w, (_, l, _) in zip(wts, parts))
+            A = sum(w * a for w, (_, _, a) in zip(wts, parts))
+            out[b, h * G:(h + 1) * G] = A / L.clamp(min=1e-30)
+    return out, splits
+
+
+@pytest.mark.parametrize("window", [None, 100, 1000])
+@pytest.mark.parametrize("n_sm", [1, 8, 132])
+def test_decode_split_plan_reassembles_the_plain_and_pallas_decode(window, n_sm):
+    """Cut by the plan mirror and merged by the combine's formula, the
+    decode equals the plain version and the Pallas kernel within 2e-5;
+    kv_len-0 lanes give 0, and at 132 SMs every live lane splits."""
+    rng = np.random.default_rng(8)
+    B, H, Hkv, D, page, n_ptab, n_pages = 7, 12, 2, 16, 16, 20, 150
+    q = rng.standard_normal((B, H, D)).astype(np.float32)
+    kp = rng.standard_normal((n_pages, page, Hkv, D)).astype(np.float32)
+    vp = rng.standard_normal((n_pages, page, Hkv, D)).astype(np.float32)
+    ptab = rng.permutation(np.arange(1, n_pages))[:B * n_ptab]
+    ptab = ptab.reshape(B, n_ptab).astype(np.int32)
+    kv_len = np.array([0, 1, 63, 64, 65, 200, 320], np.int32)
+    t = [torch.from_numpy(a) for a in (q, kp, vp, ptab, kv_len)]
+    got, splits = _decode_by_plan(*t, window, n_sm)
+    want = tfd.paged_flash_decode(*t, window=window)
+    pallas = paged_flash_decode_kernel(*(jnp.asarray(a) for a in (q, kp, vp, ptab, kv_len)),
+                                       window=window, interpret=True)
+    assert not got[0].any() and not np.asarray(pallas)[0].any()
+    if n_sm == 132:
+        assert all(n == split_plan.lane_tiles(int(kl), 1, 320, window)
+                   for n, kl in zip(splits, kv_len))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), atol=2e-5, rtol=2e-5)
