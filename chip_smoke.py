@@ -78,12 +78,15 @@ def ptxas_summary(log: str):
             mangled = m.group(1)
             base = re.search(r"(decode_\w+?_kernel|"
                              r"flash_attention_\w+?_kernel|ssd_scan_kernel|"
-                             r"moe_gmm_kernel|rmsnorm_kernel)", mangled)
-            dtype = ("bf16" if "nv_bfloat16" in mangled or "tc_kernel" in mangled else
+                             r"moe_gmm_(?:gate_up|down)_\w*?kernel|rmsnorm_kernel)", mangled)
+            dtype = ("bf16" if any(k in mangled for k in ("nv_bfloat16", "tc_kernel",
+                                                          "wgmma_kernel", "swap_kernel")) else
                      "f16" if "__half" in mangled else "f32")
             ints = ", ".join(re.findall(r"Li(\d+)E", mangled))
-            contig = (", contiguous" if re.search(r"Lb1E", mangled) else
-                      ", paged" if re.search(r"Lb0E", mangled) else "")
+            flag = re.search(r"Lb([01])E", mangled)
+            words = (("token pairs", "column pairs") if "wgmma_kernel" in mangled else
+                     ("paged", "contiguous"))
+            contig = f", {words[int(flag.group(1))]}" if flag else ""
             name = (base.group(1) if base else mangled) + f"<{dtype}" + (
                 f", {ints}" if ints else "") + f"{contig}>"
         elif "spill stores" in line:
@@ -553,42 +556,64 @@ def check_kernels(torch):
 
 
 def check_moe_gmm(torch, gen):
-    """The grouped SwiGLU at mixtral-8x7b's expert widths, at the four token
-    counts per expert that the serving phase gives it: C 8 (dense decode, 8
-    lanes, x shared by the experts), 3 (dispatch decode: ceil(8·2/8·1.25)),
-    160 (dispatch prefill: 8 rows × ceil(64·2/8·1.25)) and 512 (dense
-    prefill: 8 lanes × 64, x shared)."""
+    """The grouped SwiGLU against its plain version in f32 and bf16: at
+    ragged shapes (E 2, D 192, F 320 — multiples of 64 but not of the 128-
+    and 256-column tiles — with C 1, 63, 65, 130, 200 and 320, x shared and
+    per expert; 320 is three 128-row tiles, so the second block of the last
+    pair has no rows) and at mixtral-8x7b's expert widths at the four token counts per
+    expert that the serving phase gives it: C 8 (dense decode, 8 lanes, x
+    shared by the experts), 3 (dispatch decode: ceil(8·2/8·1.25)), 160
+    (dispatch prefill: 8 rows × ceil(64·2/8·1.25)) and 512 (dense prefill:
+    8 lanes × 64, x shared).  Then bf16 times at the serving shapes, device
+    time per pass, and the tile plan."""
     import torch.nn.functional as F
-    from repro_torch.kernels.moe_gmm import kernel as moe_k, ref as moe_r
+    from repro_torch.kernels.moe_gmm import kernel as moe_k, plan as moe_p, ref as moe_r
 
     dev = torch.device("cuda")
     E, D, FF = 8, 4096, 14336
     shapes = ((8, True), (3, False), (160, False), (512, True))
     dt_of = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
-    def weights(dt):       # init_moe's uniform ±1/√d_in, drawn in f32
+    def weights(e, d, f, dt):       # init_moe's uniform ±1/√d_in, drawn in f32
         return [torch.empty(shape, device=dev).uniform_(-s, s, generator=gen).to(dt_of[dt])
-                for shape, s in (((E, D, FF), D ** -0.5), ((E, D, FF), D ** -0.5),
-                                 ((E, FF, D), FF ** -0.5))]
+                for shape, s in (((e, d, f), d ** -0.5), ((e, d, f), d ** -0.5),
+                                 ((e, f, d), f ** -0.5))]
 
-    def tokens(C, shared, dt):
-        x = torch.randn((1 if shared else E, C, D), device=dev, generator=gen)
+    def tokens(e, C, d, shared, dt):
+        x = torch.randn((1 if shared else e, C, d), device=dev, generator=gen)
         x = x.to(dt_of[dt])
-        return x.expand(E, C, D) if shared else x
+        return x.expand(e, C, d) if shared else x
 
-    def label(C, shared):
-        return f"E={E} C={C} D={D} F={FF} " + (
+    def body(C, dt):
+        if dt == "float32":
+            return "CUDA cores"
+        if C < moe_p.TC_MIN_C:
+            return "wgmma, swapped"
+        return f"wgmma, token tiles of {moe_p.rows_computed(C)} rows"
+
+    def label(e, C, d, f, shared):
+        return f"E={e} C={C} D={d} F={f} " + (
             "x shared by the experts (stride 0)" if shared else "x per expert")
 
-    errs, timed = [], {}
+    errs = []
     for dt in ("float32", "bfloat16"):
-        w = weights(dt)
+        w = weights(2, 192, 320, dt)
+        for C in (1, 63, 65, 130, 200, 320):
+            for shared in (True, False):
+                x = tokens(2, C, 192, shared, dt)
+                e = max_err(torch, moe_k.moe_gmm(x, *w), moe_r.moe_gmm_ref(x, *w), dt,
+                            MOE_TOL[dt])
+                print(f"[kernels] moe_gmm {dt} {label(2, C, 192, 320, shared)} "
+                      f"({body(C, dt)}) max_abs_err={e:.3e} (tol {MOE_TOL[dt]})")
+                if dt == "bfloat16":
+                    errs.append(e)
+        w = weights(E, D, FF, dt)
         for C, shared in shapes:
-            x = tokens(C, shared, dt)
+            x = tokens(E, C, D, shared, dt)
             e = max_err(torch, moe_k.moe_gmm(x, *w), moe_r.moe_gmm_ref(x, *w), dt,
                         MOE_TOL[dt])
-            print(f"[kernels] moe_gmm {dt} {label(C, shared)} max_abs_err={e:.3e} "
-                  f"(tol {MOE_TOL[dt]})")
+            print(f"[kernels] moe_gmm {dt} {label(E, C, D, FF, shared)} ({body(C, dt)}) "
+                  f"max_abs_err={e:.3e} (tol {MOE_TOL[dt]})")
             if dt == "bfloat16":
                 errs.append(e)
         if dt == "float32":
@@ -596,31 +621,47 @@ def check_moe_gmm(torch, gen):
             torch.cuda.empty_cache()
     # bf16 timings: the weights (2.82 GB) are far larger than L2, so every
     # call reads them cold
+    timed = {}
     for C, shared in shapes:
-        x = tokens(C, shared, "bfloat16")
+        x = tokens(E, C, D, shared, "bfloat16")
 
         def chain(i, x=x):
             h = F.silu(torch.bmm(x, w[0])) * torch.bmm(x, w[1])
             return torch.bmm(h, w[2])
 
         ms = time_ms(torch, lambda i: moe_k.moe_gmm(x, *w), 1, iters=20)
-        dev_ms = device_ms(torch, lambda i: moe_k.moe_gmm(x, *w), 1, "moe_gmm", iters=20)
+        by_kernel = device_ms_by_kernel(torch, lambda i: moe_k.moe_gmm(x, *w), 1, "moe_gmm",
+                                        iters=20)
+        need(len(by_kernel) == 2, f"expected two moe_gmm passes, traced {sorted(by_kernel)}")
+        up_ms = sum(v for k, v in by_kernel.items() if "gate_up" in k)
+        down_ms = sum(v for k, v in by_kernel.items() if "down" in k)
+        dev_ms = up_ms + down_ms
         plain = time_ms(torch, lambda i: moe_r.moe_gmm_ref(x, *w), 1, iters=20)
         chain_ms = time_ms(torch, chain, 1, iters=20)
         x_bytes = (1 if shared else E) * C * D * 2
+        h_bytes = E * C * FF * 2
+        up_bytes = x_bytes + 2 * E * D * FF * 2 + h_bytes
+        down_bytes = h_bytes + E * FF * D * 2 + E * C * D * 2
         nbytes = x_bytes + 3 * E * D * FF * 2 + E * C * D * 2
-        b_ms, b_by = bound(nbytes, 2.0 * 3 * E * C * D * FF, "bfloat16")
-        timed[C] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain, chain_ms=chain_ms,
-                        bound_ms=b_ms, bound_by=b_by)
-        tile = 16 if C <= 32 else 128
-        print(f"[kernels] moe_gmm bf16 timed at C={C}: {ms:.4f} ms (device "
-              f"{dev_ms:.4f} ms per launch; plain "
-              f"{plain:.4f} ms, bound {b_ms:.4f} ms by {b_by}; "
-              f"{nbytes / ms / 1e6:.1f} GB/s, {6 * E * C * D * FF / ms / 1e9:.1f} "
-              f"TFLOP/s; context, not a library call: the torch.bmm chain "
-              f"bmm+bmm+silu·mul+bmm {chain_ms:.4f} ms); grid "
-              f"{-(-C // tile)}×{FF // 64}×{E} + {-(-C // tile)}×{D // 64}×{E} "
-              f"blocks of {tile} tokens × 64 columns")
+        flops = 2.0 * 3 * E * C * D * FF
+        b_ms, b_by = bound(nbytes, flops, "bfloat16")
+        plan_text = (moe_p.describe(E, C, D, FF, moe_k.resident_clusters(C))
+                     if C >= moe_p.TC_MIN_C else
+                     moe_p.describe_decode(E, D, FF, torch.cuda.get_device_properties(
+                         dev).multi_processor_count))
+        timed[C] = dict(ms=ms, device_ms=dev_ms, gate_up_ms=up_ms, down_ms=down_ms,
+                        plain_ms=plain, chain_ms=chain_ms, bound_ms=b_ms, bound_by=b_by,
+                        tflops=flops / dev_ms / 1e9, gbps=nbytes / dev_ms / 1e6,
+                        plan=plan_text)
+        print(f"[kernels] moe_gmm bf16 timed at C={C}: {ms:.4f} ms (device {dev_ms:.4f} ms "
+              f"per call = gate/up {up_ms:.4f} ({4 * E * C * D * FF / up_ms / 1e9:.1f} "
+              f"TFLOP/s, {up_bytes / up_ms / 1e6:.1f} GB/s) + down {down_ms:.4f} "
+              f"({2 * E * C * D * FF / down_ms / 1e9:.1f} TFLOP/s, "
+              f"{down_bytes / down_ms / 1e6:.1f} GB/s); whole call on device time "
+              f"{flops / dev_ms / 1e9:.1f} TFLOP/s, {nbytes / dev_ms / 1e6:.1f} GB/s; "
+              f"plain {plain:.4f} ms, bound {b_ms:.4f} ms by {b_by}; context, not a "
+              f"library call: the torch.bmm chain bmm+bmm+silu·mul+bmm {chain_ms:.4f} ms); "
+              f"{plan_text}")
     print("[kernels] moe_gmm library: none (no single PyTorch call computes the "
           "grouped SwiGLU; the torch.bmm chain's times above are context)")
     del w
@@ -1373,8 +1414,8 @@ def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=["kernels"],
-                    help="stop after phase 3 (build and kernel checks), without "
-                         "the final JSON line")
+                    help="kernels: stop after phase 3 (build and kernel checks), "
+                         "without the final JSON line")
     args = ap.parse_args(argv)
     import torch
     # phase 1: device
@@ -1393,6 +1434,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import kernel as fa_k
     from repro_torch.kernels.flash_decode import kernel as fd_k
+    from repro_torch.kernels.moe_gmm import kernel as moe_k
     t0 = time.monotonic()
     build.build(SOURCES)
     print(f"[build] nvcc ({len(SOURCES)} sources in parallel) "
@@ -1411,11 +1453,10 @@ def main(argv=None) -> int:
             fa_k.smem_bytes(torch.float32, D),
             "ssd_scan_kernel (p=64, n=128, 32-position chunks)":
             4 * (2 * LC * (N + 1) + LC * P + LC * (LC + 1) + P * (N + 1) + 3 * LC)}
-    for bm in (16, 128):                # moe_gmm's 4-stage ring, bf16 / f32
-        for nmat, what in ((2, "gate/up"), (1, "down")):
-            smem[f"moe_gmm_kernel ({what}, {bm} tokens)"] = " / ".join(
-                f"{4 * es * (bm * (32 + 16 // es) + nmat * 32 * (64 + 16 // es)):,}"
-                for es in (2, 4))
+    for C, what in ((8, "C 8"), (160, "C 160"), (512, "C 512")):   # bf16 / f32
+        for which in ("gate_up", "down"):
+            smem[f"moe_gmm {which} ({what})"] = " / ".join(
+                f"{moe_k.smem_bytes(dt, C, which):,}" for dt in (torch.bfloat16, torch.float32))
     print("[build] dynamic shared memory per block: " + "; ".join(
         f"{k} {v if isinstance(v, str) else format(v, ',')} B"
         for k, v in smem.items()))

@@ -4,19 +4,27 @@ Replaces the TPU kernel ``src/repro/kernels/moe_gmm/kernel.py:45``
 ``moe_gmm_kernel`` (body ``_moe_kernel``): the capacity-buffered expert FFN
 ``y[e] = (silu(x[e] Wg[e]) * (x[e] Wu[e])) Wd[e]`` with an f32 accumulator.
 
-Bound on the card: bytes at serving shapes — a decode step reads every
-expert's weights (3·E·D·F values, 2.82 GB per mixtral layer in bf16, 0.84 ms
-at 3.35 TB/s), while the tensor cores would need ~400 tokens per expert to
-become the limit.  Design: two passes of one grouped-GEMM kernel — gate/up
-writes ``H = silu(x Wg) * (x Wu)`` (E, C, F) to device memory, down reads it
-— because H is tiny beside the weights at decode (3.7 MB in f32 at C = 8)
-and each pass then reads its weights once over a grid that fills the card.
-Blocks own (16 or 128 tokens) × 64-column tiles of one expert and stream the
-weights through a 4-stage ``cp.async`` ring; bf16 multiplies on the tensor
-cores (``mma.sync``), f32 on the CUDA cores, both accumulating in f32.  The
-token axis is masked (any C), and ``x`` may have expert stride 0, which the
-dense mix uses so that no (E, C, D) copy is made.  One call is two CUDA
-launches and counts as one launch of the kernel.
+Bound on the card: bytes at decode — every call reads every expert's
+weights (3·E·D·F values, 2.82 GB per mixtral layer in bf16, 0.84 ms at
+3.35 TB/s) — and operations at dense prefill (C 512: 1.44e12 flops, 1.46 ms
+at 989 TFLOP/s).  Design: two passes — gate/up writes ``H = silu(x Wg) *
+(x Wu)`` (E, C, F) to device memory, down reads it — so each pass reads its
+weights once.  bf16 with C > 32 runs on ``wgmma`` fed by TMA: persistent
+clusters of two blocks walk the tile order of :mod:`plan` (the token tiles
+of one weight tile are neighbours, so the weights come from HBM once) and
+share each stage through a TMA multicast — the weights when the blocks take
+two token tiles (C > 192), the token rows when they take two halves of the
+columns (C ≤ 192) — a producer thread keeps a ring of 64-deep stages full
+through ``mbarrier`` s, and two or three consumer warpgroups of 64 token
+rows multiply, a part wholly past C idle.  bf16 decode (C ≤ 32) runs
+the swapped product ``out^T = W^T x^T`` on ``wgmma`` (weights as the 64-row
+operand, tokens padded to 32), streaming the weights through a TMA ring
+near the byte bound.  The tensor maps are encoded on every call through
+``cudaGetDriverEntryPoint`` (nothing links ``libcuda``).  f32 keeps a
+``cp.async`` ring and CUDA-core FMAs.  The token axis is masked (any
+C), and ``x`` may have expert stride 0, which the dense mix uses so that no
+(E, C, D) copy is made.  One call is two CUDA launches and counts as one
+launch of the kernel.
 """
 from __future__ import annotations
 
@@ -25,6 +33,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.moe_gmm import plan
 
 launches = 0          # kernel calls since the last reset (main-path check)
 
@@ -32,6 +41,23 @@ _NAME = "moe_gmm"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 ALIGN = 64            # D and F must be multiples of the kernel's 64-column tile
 _fn = None
+
+
+def smem_bytes(dtype: torch.dtype, C: int, which: str) -> int:
+    """Dynamic shared memory of one block of pass ``which`` ("gate_up" or
+    "down") at C tokens per expert, as the launcher requests it: bf16 takes
+    the TMA ring of the swapped decode body (C ≤ 32, :func:`plan.decode_smem`)
+    or the ring and output staging of the prefill body (:func:`plan.smem`,
+    the same for both passes); f32 the 4-stage ``cp.async`` ring of 32-row
+    slices (16 or 128 token rows, padded by 16 bytes a row)."""
+    nmat = 2 if which == "gate_up" else 1
+    if dtype == torch.bfloat16:
+        if C < plan.TC_MIN_C:
+            return plan.decode_smem(nmat)["total"]
+        return plan.smem(plan.shape(C))["total"]
+    es = torch.empty((), dtype=dtype).element_size()
+    bm = 16 if C < plan.TC_MIN_C else 128
+    return 4 * es * (bm * (32 + 16 // es) + nmat * 32 * (64 + 16 // es))
 
 
 def _launcher():
@@ -43,8 +69,21 @@ def _launcher():
                        + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        lib.moe_gmm_resident_clusters.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.moe_gmm_resident_clusters.restype = ctypes.c_int
         _fn = (lib, fn)
     return _fn
+
+
+def resident_clusters(C: int) -> dict:
+    """Clusters of two blocks per pass ("gate_up", "down") of the prefill
+    body, in the shape it takes at C, that fit on the card at once, as that
+    pass's first launch in that shape found them (0 before it): the most
+    clusters a pass runs."""
+    lib, _ = _launcher()
+    columns = int(plan.shape(C) == "column_pairs")
+    return {w: lib.moe_gmm_resident_clusters(i, columns)
+            for i, w in enumerate(("gate_up", "down"))}
 
 
 def moe_gmm(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
@@ -52,12 +91,27 @@ def moe_gmm(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     """x (E, C, D) with contiguous rows and expert stride C·D or 0 (an
     expanded view); w_gate, w_up (E, D, F) and w_down (E, F, D) contiguous;
     one CUDA device, one dtype (f32 or bf16); D and F multiples of 64.
-    Returns (E, C, D) in x's dtype."""
+    Returns (E, C, D) in x's dtype.  Raises on anything else before the
+    library is built."""
     global launches
+    E, C, D, F = _checked(x, w_gate, w_up, w_down)
+    y = torch.empty((E, C, D), dtype=x.dtype, device=x.device)
+    if E == 0 or C == 0:
+        return y
+    h = torch.empty((E, C, F), dtype=x.dtype, device=x.device)
+    lib, fn = _launcher()
+    err = fn(_DTYPE_CODE[x.dtype], x.data_ptr(), x.stride(0), w_gate.data_ptr(),
+             w_up.data_ptr(), w_down.data_ptr(), h.data_ptr(), y.data_ptr(),
+             E, C, D, F, build.stream(x))
+    build.check(lib, err, _NAME)
+    launches += 1
+    return y
+
+
+def _checked(x, w_gate, w_up, w_down):
+    """(E, C, D, F) of a call the kernel takes; raises ValueError on any
+    type, shape, stride, alignment or device it does not."""
     tensors = (x, w_gate, w_up, w_down)
-    if any(t.device.type != "cuda" or t.device != x.device for t in tensors):
-        raise ValueError("moe_gmm kernel needs CUDA tensors on one device: "
-                         + ", ".join(str(t.device) for t in tensors))
     if x.dtype not in _DTYPE_CODE or any(t.dtype != x.dtype for t in tensors):
         raise ValueError("moe_gmm kernel: x and the weights must share f32 or "
                          "bf16, got " + ", ".join(str(t.dtype) for t in tensors))
@@ -82,14 +136,7 @@ def moe_gmm(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
                          f"of {D} with expert stride {C * D} or 0")
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError("moe_gmm kernel: inputs must be 16-byte aligned")
-    y = torch.empty((E, C, D), dtype=x.dtype, device=x.device)
-    if E == 0 or C == 0:
-        return y
-    h = torch.empty((E, C, F), dtype=x.dtype, device=x.device)
-    lib, fn = _launcher()
-    err = fn(_DTYPE_CODE[x.dtype], x.data_ptr(), x.stride(0), w_gate.data_ptr(),
-             w_up.data_ptr(), w_down.data_ptr(), h.data_ptr(), y.data_ptr(),
-             E, C, D, F, build.stream(x))
-    build.check(lib, err, _NAME)
-    launches += 1
-    return y
+    if any(t.device.type != "cuda" or t.device != x.device for t in tensors):
+        raise ValueError("moe_gmm kernel needs CUDA tensors on one device: "
+                         + ", ".join(str(t.device) for t in tensors))
+    return E, C, D, F

@@ -269,6 +269,43 @@ def test_flash_attention_paged_launcher_refuses_bad_inputs():
     assert fa_kernel.launches == before and fa_kernel._fn is None
 
 
+def test_moe_gmm_launcher_refuses_bad_inputs():
+    """The grouped SwiGLU's launcher refuses a dtype, shape, stride or
+    alignment the kernel does not take, and tensors that are not on the
+    card, before anything is built or counted."""
+    w = torch.zeros(2, 64, 128)
+    wd = torch.zeros(2, 128, 64)
+    x = torch.zeros(2, 3, 64)
+    before = moe_kernel.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        moe_kernel.moe_gmm(x, w, w, wd)
+    with pytest.raises(ValueError, match="CUDA"):
+        moe_kernel.moe_gmm(x[:1].expand(2, 3, 64), w, w, wd)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        moe_kernel.moe_gmm(x.half(), w.half(), w.half(), wd.half())
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        moe_kernel.moe_gmm(x, w.bfloat16(), w, wd)
+    with pytest.raises(ValueError, match="bad shapes"):
+        moe_kernel.moe_gmm(x[0], w, w, wd)
+    with pytest.raises(ValueError, match="inconsistent shapes"):
+        moe_kernel.moe_gmm(x, w, w, w)
+    with pytest.raises(ValueError, match="inconsistent shapes"):
+        moe_kernel.moe_gmm(torch.zeros(3, 3, 64), w, w, wd)
+    odd = torch.zeros(2, 3, 96)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        moe_kernel.moe_gmm(odd, torch.zeros(2, 96, 128), torch.zeros(2, 96, 128),
+                           torch.zeros(2, 128, 96))
+    with pytest.raises(ValueError, match="weights must be contiguous"):
+        moe_kernel.moe_gmm(x, w, w, torch.zeros(2, 64, 128).transpose(1, 2))
+    with pytest.raises(ValueError, match="strides"):        # rows not contiguous
+        moe_kernel.moe_gmm(torch.zeros(2, 64, 3).transpose(1, 2), w, w, wd)
+    with pytest.raises(ValueError, match="strides"):        # expert stride 5·64
+        moe_kernel.moe_gmm(torch.zeros(2, 5, 64)[:, :3], w, w, wd)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        moe_kernel.moe_gmm(torch.zeros(2 * 3 * 64 + 1)[1:].view(2, 3, 64), w, w, wd)
+    assert moe_kernel.launches == before and moe_kernel._fn is None
+
+
 def test_kernel_modules_import_without_triton_or_nvcc(tmp_path):
     """``triton`` is blocked and no ``nvcc`` is reachable in the child."""
     code = ("import sys\n"
