@@ -77,7 +77,7 @@ def ptxas_summary(log: str):
         if m:
             mangled = m.group(1)
             base = re.search(r"(decode_\w+?_kernel|"
-                             r"flash_attention_\w+?_kernel|ssd_scan_kernel|"
+                             r"flash_attention_\w+?_kernel|ssd_scan_\w*?kernel|"
                              r"moe_gmm_(?:gate_up|down)_\w*?kernel|rmsnorm_kernel)", mangled)
             dtype = ("bf16" if any(k in mangled for k in ("nv_bfloat16", "tc_kernel",
                                                           "wgmma_kernel", "swap_kernel")) else
@@ -119,24 +119,28 @@ def time_ms(torch, fn, n_inputs: int, iters: int = 40, warmup: int = 3) -> float
 def device_ms_by_kernel(torch, fn, n_inputs: int, name: str, iters: int = 40) -> dict:
     """Device milliseconds per call of ``fn(i)`` in each kernel whose name
     holds ``name``, from ``torch.profiler`` over ``iters`` calls after one
-    warm-up call."""
+    warm-up call.  A window whose trace holds no such kernel (the profiler
+    once traced no device event at all in a window of SDPA calls) is
+    profiled again, three windows at most."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn(0)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            fn(i % n_inputs)
-        torch.cuda.synchronize()
-    spans = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA and name in e.name.lower():
-            key = re.search(r"\w*kernel\w*", e.name)
-            key = key.group(0) if key else e.name[:60]
-            spans[key] = spans.get(key, 0.0) + e.time_range.end - e.time_range.start
-    need(spans, f"torch.profiler traced no device kernel named {name}")
-    return {k: v / 1e3 / iters for k, v in spans.items()}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fn(i % n_inputs)
+            torch.cuda.synchronize()
+        spans = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA and name in e.name.lower():
+                key = re.search(r"\w*kernel\w*", e.name)
+                key = key.group(0) if key else e.name[:60]
+                spans[key] = spans.get(key, 0.0) + e.time_range.end - e.time_range.start
+        if spans:
+            return {k: v / 1e3 / iters for k, v in spans.items()}
+    need(False, f"torch.profiler traced no device kernel named {name} in three windows")
 
 
 def device_ms(torch, fn, n_inputs: int, name: str, iters: int = 40) -> float:
@@ -501,29 +505,44 @@ def check_kernels(torch):
     # --- SSD scan -------------------------------------------------------------
     SH, SP, SN = 64, 64, 128           # mamba2-1.3b: heads, head_dim, d_state
 
-    def ssd_case(b, s, dt, with_state=True):
+    def ssd_case(b, s, dt, with_state=True, n=SN):
         u = torch.rand((b, s, SH), device=dev, generator=gen)
         dtv = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
         A = -torch.arange(1, SH + 1, device=dev, dtype=torch.float32)
-        st = randn((b, SH, SP, SN), dt) * 0.3 if with_state else None
+        st = randn((b, SH, SP, n), dt) * 0.3 if with_state else None
         return (randn((b, s, SH, SP), dt) * 0.5, dtv, A,
-                randn((b, s, 1, SN), dt) * 0.3, randn((b, s, 1, SN), dt) * 0.3, st)
+                randn((b, s, 1, n), dt) * 0.3, randn((b, s, 1, n), dt) * 0.3, st)
 
+    # (b, s, plain chunk, initial state, d_state): mamba2's (64, 128) with
+    # partial and odd lengths (one chunk of the bf16 body is 64 positions),
+    # and zamba2-7b's (64, 64)
     errs = []
     for dt in ("bfloat16", "float32"):
-        for b, s, chunk, with_state in ((1, 64, 64, False), (1, 64, 64, True),
-                                        (8, 64, 64, True), (1, 256, 256, True),
-                                        (8, 256, 256, True), (1, 1024, 256, True),
-                                        (8, 1024, 256, True)):
-            x, dtv, A, Bm, Cm, st = ssd_case(b, s, dt, with_state)
+        for b, s, chunk, with_state, n in (
+                (1, 64, 64, False, SN), (1, 64, 64, True, SN), (8, 64, 64, True, SN),
+                (8, 64, 64, False, SN), (1, 1, 1, True, SN), (1, 3, 3, True, SN),
+                (1, 37, 37, True, SN), (2, 100, 100, True, SN),
+                (1, 256, 256, True, SN), (8, 256, 256, True, SN),
+                (1, 1024, 256, True, SN), (8, 1024, 256, True, SN),
+                (1, 64, 64, True, 64), (2, 256, 256, True, 64)):
+            x, dtv, A, Bm, Cm, st = ssd_case(b, s, dt, with_state, n)
             y, fin = ssd_k.ssd_scan(x, dtv, A, Bm, Cm, st)
             y_r, fin_r = ssd_r.ssd_scan_ref(x, dtv, A, Bm, Cm, chunk, st)
             e = max(max_err(torch, y, y_r, dt), max_err(torch, fin, fin_r, dt))
-            print(f"[kernels] ssd_scan {dt} b={b} s={s} h={SH} p={SP} n={SN} "
+            print(f"[kernels] ssd_scan {dt} b={b} s={s} h={SH} p={SP} n={n} "
                   f"initial_state={'nonzero' if with_state else 'zero'} (plain at "
                   f"chunk {chunk}) max_abs_err(y, state)={e:.3e} (tol {TOL[dt]})")
             if dt == "bfloat16":
                 errs.append(e)
+    x, dtv, A, Bm, Cm, _ = ssd_case(1, 8, "bfloat16", False, 32)
+    try:
+        ssd_k.ssd_scan(x, dtv, A, Bm, Cm)
+        refused = False
+    except ValueError:
+        refused = True
+    need(refused and ssd_k.built_smem_bytes(torch.bfloat16, SP, 32) == 0,
+         "ssd_scan took (p, n) = (64, 32), which it is not built for")
+    print("[kernels] ssd_scan refuses (p, n) = (64, 32) on the card (wrapper and source)")
     sets = [ssd_case(1, 64, "bfloat16") for _ in range(COPIES)]
     ms = time_ms(torch, lambda i: ssd_k.ssd_scan(*sets[i]), COPIES, iters=100)
     ssd_dev = device_ms(torch, lambda i: ssd_k.ssd_scan(*sets[i]), COPIES, "ssd_scan",
@@ -533,6 +552,7 @@ def check_kernels(torch):
                     COPIES, iters=20)
     big = [ssd_case(8, 1024, "bfloat16") for _ in range(2)]
     ms_big = time_ms(torch, lambda i: ssd_k.ssd_scan(*big[i]), 2, iters=10)
+    dev_big = device_ms(torch, lambda i: ssd_k.ssd_scan(*big[i]), 2, "ssd_scan", iters=10)
     b, s = 1, 64
     nbytes = (2 * b * s * SH * SP * 2 + 2 * b * s * SN * 2 + b * s * SH * 4 + SH * 4
               + 2 * b * SH * SP * SN * 2)
@@ -547,9 +567,11 @@ def check_kernels(torch):
     print(f"[kernels] ssd_scan bf16 timed at b=1 s=64 (one prefill chunk of one "
           f"lane, nonzero state): {ms:.4f} ms (device {ssd_dev:.4f} ms per launch; "
           f"plain {plain:.4f} ms, bound "
-          f"{b_ms:.5f} ms by {b_by}); at b=8 s=1024: {ms_big:.4f} ms; library: "
-          f"none (no single PyTorch call computes the SSD scan with its state); "
-          f"grid {SH}×{b} blocks")
+          f"{b_ms:.5f} ms by {b_by}); at b=8 s=1024: {ms_big:.4f} ms (device "
+          f"{dev_big:.4f} ms); library: none (no single PyTorch call computes the "
+          f"SSD scan with its state); grid {ssd_k.grid(b, SH, SP)} blocks of "
+          f"{ssd_k.THREADS} threads, PB {ssd_k.PB} state rows a block, chunks of "
+          f"{ssd_k.CHUNK} positions")
     rows["moe_gmm"], rows["moe_gmm_shapes"] = check_moe_gmm(torch, gen)
     rows["device_ms"]["moe_gmm"] = rows["moe_gmm_shapes"][8]["device_ms"]
     return rows
@@ -1444,15 +1466,20 @@ def main(argv=None) -> int:
             print(f"[build] {src}: {kernel} {regs} registers, {spills}")
     # dynamic shared memory per block, from the kernels' layouts at the
     # main paths' shapes (ptxas reports static shared memory only)
-    D, P, N, LC = 128, 64, 128, 32
+    from repro_torch.kernels.ssd_scan import kernel as ssd_k
+    D = 128
     smem = {"decode_split_tc_kernel (bf16, D=128)": fd_k.smem_bytes(torch.bfloat16, D),
             "decode_split_simt_kernel (f32, D=128)": fd_k.smem_bytes(torch.float32, D),
             "flash_attention_tc_kernel (bf16, D=128)":
             fa_k.smem_bytes(torch.bfloat16, D),
             "flash_attention_simt_kernel (f32, D=128)":
             fa_k.smem_bytes(torch.float32, D),
-            "ssd_scan_kernel (p=64, n=128, 32-position chunks)":
-            4 * (2 * LC * (N + 1) + LC * P + LC * (LC + 1) + P * (N + 1) + 3 * LC)}
+            **{f"ssd_scan ({'tc, bf16' if dt == torch.bfloat16 else 'f32'}, p={p}, n={n})":
+               ssd_k.smem_bytes(dt, p, n)
+               for dt in (torch.bfloat16, torch.float32) for p, n in ssd_k.SHAPES}}
+    need(all(ssd_k.smem_bytes(dt, p, n) == ssd_k.built_smem_bytes(dt, p, n)
+             for dt in (torch.bfloat16, torch.float32) for p, n in ssd_k.SHAPES),
+         "kernels/ssd_scan/kernel.py::smem_bytes disagrees with csrc/ssd_scan.cu")
     for C, what in ((8, "C 8"), (160, "C 160"), (512, "C 512")):   # bf16 / f32
         for which in ("gate_up", "down"):
             smem[f"moe_gmm {which} ({what})"] = " / ".join(

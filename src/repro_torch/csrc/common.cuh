@@ -97,6 +97,12 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_b
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
+// 4-byte global -> shared copy through L1 (cp.async.cg takes 16 bytes only);
+// src_bytes = 0 writes zeros.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
@@ -275,6 +281,34 @@ __device__ __forceinline__ void split_tiles(int t0, int T, int n, int s, int& be
   const int q = cdiv(T, n);
   begin = t0 + s * q;
   end = min(t0 + T, begin + q);
+}
+
+// --- Per-device launch state ---------------------------------------------- //
+
+// Per-device state is kept in arrays of this many devices; callers hold the
+// Python GIL.
+constexpr int kMaxDevices = 64;
+
+// The current device, or -1 on failure or at kMaxDevices and beyond.
+inline int current_device() {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices) return -1;
+  return dev;
+}
+
+// Lets `kernel` take `bytes` of dynamic shared memory on the current device.
+// The attribute belongs to a device, so it is set once per device: `done`
+// is the kernel's own flags, a static array beside its launcher.
+inline cudaError_t allow_smem(bool (&done)[kMaxDevices], const void* kernel, size_t bytes) {
+  const int dev = current_device();
+  if (dev < 0) return cudaErrorInvalidDevice;
+  if (!done[dev]) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return err;
+    done[dev] = true;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace repro

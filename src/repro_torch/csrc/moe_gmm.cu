@@ -215,16 +215,8 @@ __global__ void __launch_bounds__(Cfg::kThreads)
   gmm_tile<T, Cfg, 1>(a, a_se, M, K, N, b0, nullptr, out);
 }
 
-// Per-device state below is kept in arrays of this many devices; callers
-// hold the Python GIL.
-constexpr int kMaxDevices = 64;
-
-// The current device, or -1 on failure or at kMaxDevices and beyond.
-int current_device() {
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices) return -1;
-  return dev;
-}
+using repro::current_device;
+using repro::kMaxDevices;
 
 template <typename T, class Cfg, int NMAT>
 cudaError_t launch(const T* a, long long a_se, int E, int M, int K, int N, const T* b0,
@@ -235,14 +227,8 @@ cudaError_t launch(const T* a, long long a_se, int E, int M, int K, int N, const
     else return moe_gmm_down_kernel<T, Cfg>;
   }();
   static bool smem_set[kMaxDevices] = {};
-  const int dev = current_device();
-  if (dev < 0) return cudaErrorInvalidDevice;
-  if (!smem_set[dev]) {
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
-    if (err != cudaSuccess) return err;
-    smem_set[dev] = true;
-  }
+  const cudaError_t err = repro::allow_smem(smem_set, (const void*)kernel, smem);
+  if (err != cudaSuccess) return err;
   dim3 grid((M + Cfg::BM - 1) / Cfg::BM, N / kBN, E);
   if constexpr (NMAT == 2)
     kernel<<<grid, Cfg::kThreads, smem, stream>>>(a, a_se, M, K, N, b0, b1, out);
@@ -797,19 +783,12 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 cudaError_t run(const void* x, long long x_se, const void* wg, const void* wu, const void* wd,
                 void* h, void* y, int E, int C, int D, int F, cudaStream_t stream) {
-  static bool smem_set[kMaxDevices] = {};
-  const int dev = current_device();
-  if (dev < 0) return cudaErrorInvalidDevice;
-  if (!smem_set[dev]) {
-    cudaError_t err = cudaFuncSetAttribute(moe_gmm_gate_up_swap_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           Ring<2>::kBytes);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(moe_gmm_down_swap_kernel,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, Ring<1>::kBytes);
-    if (err != cudaSuccess) return err;
-    smem_set[dev] = true;
-  }
+  static bool up_set[kMaxDevices] = {}, down_set[kMaxDevices] = {};
+  cudaError_t set =
+      repro::allow_smem(up_set, (const void*)moe_gmm_gate_up_swap_kernel, Ring<2>::kBytes);
+  if (set == cudaSuccess)
+    set = repro::allow_smem(down_set, (const void*)moe_gmm_down_swap_kernel, Ring<1>::kBytes);
+  if (set != cudaSuccess) return set;
   CUtensorMap mx, mg, mu, mh, md;
   const uint64_t CD = (uint64_t)C * D, CF = (uint64_t)C * F, DF = (uint64_t)D * F;
   int err = encode_bf16_3d(&mx, x, D, C, x_se ? E : 1, D, CD, kTok);

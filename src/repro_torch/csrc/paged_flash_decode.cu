@@ -599,13 +599,9 @@ cudaError_t launch(const Args& a, int grid, cudaStream_t stream) {
   void (*kernel)(const Args);
   if constexpr (std::is_same<T, bf16>::value) kernel = decode_split_tc_kernel<D>;
   else kernel = decode_split_simt_kernel<D>;
-  static bool smem_set = false;     // callers hold the Python GIL
-  if (!smem_set) {
-    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return e;
-    smem_set = true;
-  }
+  static bool smem_set[repro::kMaxDevices] = {};
+  const cudaError_t set = repro::allow_smem(smem_set, (const void*)kernel, smem);
+  if (set != cudaSuccess) return set;
   kernel<<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }

@@ -5,14 +5,17 @@ Replaces the TPU kernel ``src/repro/kernels/ssd_scan/kernel.py::ssd_scan_kernel`
 carried across chunks in f32.  Unlike it, this kernel starts from a given
 state and returns the final one, which chunked prefill needs.
 
-Bound on the card: operations at long sequences, bytes at short ones (the
-state, 64 × 128 values per head, is read and written once per call).
-Design: the TPU walks the chunks in grid order with the state in VMEM
-scratch; on the card the chunk loop runs inside one block per (lane, head),
-which keeps the state in registers and shared memory across chunks of 32
-positions.  B and C are staged per block, so all heads of a lane read them
-again (from L2); the products run on the CUDA cores.  With one active lane
-a prefill dispatch fills 64 of the card's 132 SMs.
+Bound on the card: bytes at the serving shapes (the state, p × n values
+per head, is read and written once), and short of it latency.  Design: the
+TPU walks the chunks in grid order with the state in VMEM scratch; on the
+card the chunk loop runs inside the block, which keeps its state in
+registers.  bf16 runs on the tensor cores: a block owns ``PB`` state rows
+(y columns) of one (lane, head), grid ``(h, p / PB, b)`` — 128 blocks for
+one lane of mamba2 on 132 SMs — and takes ``CHUNK`` = 64 positions a round,
+its copies (``cp.async``) overlapped with the products.  f32 stays on the
+CUDA cores, one block per (lane, head), 32 positions a round, held to
+2e-5.  :func:`grid` and :func:`smem_bytes` mirror the source's launch
+plan; ``tests/test_torch_ssd_plan.py`` holds them to it.
 """
 from __future__ import annotations
 
@@ -27,8 +30,43 @@ launches = 0          # kernel launches since the last reset (main-path check)
 
 _NAME = "ssd_scan"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-SHAPES = ((64, 128),)     # (head_dim p, d_state n) the kernel is built for
+SHAPES = ((64, 128), (64, 64))   # (head_dim p, d_state n) the kernel is built for
+CHUNK = 64            # positions per round of the bf16 body (csrc: tc::kChunk)
+PB = 32               # state rows (y columns) per bf16 block (tc::kPb)
+THREADS = 128         # threads per bf16 block (tc::kThreads)
+_PAD = 8              # bf16 padding of a shared-memory row (tc::kPad)
+_F32_CHUNK = 32       # positions per round of the f32 body (kL)
 _fn = None
+
+
+def _shape(p: int, n: int) -> None:
+    if (p, n) not in SHAPES:
+        raise ValueError(f"ssd_scan kernel: (head_dim, d_state) = ({p}, {n}) "
+                         f"not in {SHAPES}")
+
+
+def grid(b: int, h: int, p: int) -> Tuple[int, int, int]:
+    """The bf16 body's launch grid (x, y, z): block (x, y, z) owns head x,
+    state rows (y columns) [y·PB, (y + 1)·PB) and lane z.  (The f32 body
+    runs one block per (head, lane).)"""
+    if p % PB:
+        raise ValueError(f"ssd_scan kernel: head_dim {p} is not a multiple of {PB}")
+    return h, p // PB, b
+
+
+def smem_bytes(dtype: torch.dtype, p: int, n: int) -> int:
+    """Dynamic shared memory of one block, as the source lays it out.
+    bf16: two stages of dt (f32), B and C (CHUNK × (n + 8)) and x
+    (CHUNK × (PB + 8)), the state's hi and lo halves (PB × (n + 8)), cum
+    and w (f32); f32: B, C (32 × (n + 1)), dt·x (32 × p), the score
+    matrix (32 × 33), the state (p × (n + 1)) and three vectors of 32."""
+    _shape(p, n)
+    if dtype == torch.bfloat16:
+        ldn, ldp = n + _PAD, PB + _PAD
+        stage = 4 * CHUNK + 2 * (2 * CHUNK * ldn + CHUNK * ldp)
+        return 2 * stage + 2 * 2 * PB * ldn + 2 * 4 * CHUNK
+    lc = _F32_CHUNK
+    return 4 * (2 * lc * (n + 1) + lc * p + lc * (lc + 1) + p * (n + 1) + 3 * lc)
 
 
 def _launcher():
@@ -39,8 +77,17 @@ def _launcher():
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
                        + [ctypes.c_int] * 5 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        lib.ssd_scan_smem_bytes.argtypes = [ctypes.c_int] * 3
+        lib.ssd_scan_smem_bytes.restype = ctypes.c_int
         _fn = (lib, fn)
     return _fn
+
+
+def built_smem_bytes(dtype: torch.dtype, p: int, n: int) -> int:
+    """Dynamic shared memory of one block as the built library reports it
+    (builds it; 0 for a shape it does not take)."""
+    lib, _ = _launcher()
+    return int(lib.ssd_scan_smem_bytes(_DTYPE_CODE[dtype], p, n))
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -71,9 +118,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError(f"ssd_scan kernel: inconsistent shapes x {tuple(x.shape)}"
                          f" dt {tuple(dt.shape)} A {tuple(A.shape)} "
                          f"B {tuple(B.shape)}")
-    if (p, n) not in SHAPES:
-        raise ValueError(f"ssd_scan kernel: (head_dim, d_state) = ({p}, {n}) "
-                         f"not in {SHAPES}")
+    _shape(p, n)
     if initial_state is not None:
         if tuple(initial_state.shape) != (b, h, p, n):
             raise ValueError(f"ssd_scan kernel: initial_state "
@@ -81,8 +126,10 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         initial_state = initial_state.to(x.dtype)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("ssd_scan kernel: inputs must be contiguous")
-    if any(t.data_ptr() % 16 for t in (x, B, C)):
-        raise ValueError("ssd_scan kernel: x, B and C must be 16-byte aligned")
+    if any(t.data_ptr() % 16 for t in (x, B, C)) or (
+            initial_state is not None and initial_state.data_ptr() % 16):
+        raise ValueError("ssd_scan kernel: x, B, C and initial_state must be "
+                         "16-byte aligned")
     y = torch.empty_like(x)
     fin = torch.empty((b, h, p, n), dtype=x.dtype, device=x.device)
     if b == 0 or h == 0:
