@@ -14,6 +14,10 @@ _ARCH_MODULES: Dict[str, str] = {
     "qwen2-1.5b": "qwen2_1_5b",
     "mamba2-1.3b": "mamba2_1_3b",
     "mixtral-8x7b": "mixtral_8x7b",
+    "qwen1.5-110b": "qwen1_5_110b",
+    "mixtral-8x22b": "mixtral_8x22b",
+    "chameleon-34b": "chameleon_34b",
+    "minicpm3-4b": "minicpm3_4b",
 }
 
 

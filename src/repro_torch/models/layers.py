@@ -1,5 +1,5 @@
-"""Transformer layers, dense and MoE subset, paged and contiguous caches
-(port of ``src/repro/models/layers.py``).
+"""Transformer layers: GQA and MLA attention, SwiGLU and MoE, over paged
+and contiguous caches (port of ``src/repro/models/layers.py``).
 
 Weights keep the JAX package's ``(d_in, d_out)`` layout and are applied as
 ``x @ w``, so carrying JAX weights over is a plain copy.  On the card the
@@ -13,6 +13,13 @@ to XLA outside any Pallas kernel.  RMSNorm, decode attention (paged and
 contiguous), prefill attention and the MoE experts' grouped SwiGLU go
 through the port's kernel ops (CUDA on the card, their plain
 versions on the CPU).
+
+Multi-head latent attention (:class:`MLA`, :func:`mla_fwd`,
+:func:`paged_mla_fwd`) stays PyTorch ops on both devices: the reference
+runs no Pallas kernel for it (its paged step passes ``use_kernel=False``
+and its contiguous path is einsums), so its products are plain products
+that the JAX package leaves to XLA.  The scores and the softmax are f32,
+as in JAX (``preferred_element_type=float32``).
 """
 from __future__ import annotations
 
@@ -171,8 +178,16 @@ def attention_fwd(p: Attention, cfg: ModelConfig, x: torch.Tensor,
       which the engine keeps true (a claimed slot is wiped and prefilled
       from position 0; an installed slot must hold every earlier
       position).  ``C == 1`` runs the contiguous decode kernel, ``C > 1``
-      the flash-attention kernel with per-row ``kv_len``.  A rolling
-      sliding-window buffer is not ported yet.
+      the flash-attention kernel with per-row ``kv_len``.
+    * rolling sliding-window ring (``window`` given with a cache): the
+      chunk is written at ``positions % S_max`` and ``kv_len =
+      min(positions[:, -1] + 1, S_max)``.  The buffer is
+      ``min(window, max_seq_len)`` long, so it holds only positions inside
+      the window, and the kernels get no window.  The engine's chunk rule
+      (chunks only while the prefix fits the ring, then one token at a
+      time) keeps every multi-token chunk unwrapped, so flash attention
+      reads rows ``[0, kv_len)`` in position order; a decode reads every
+      valid row, whose order softmax does not see.
 
     Unlike the JAX function, which returns the new buffers, the port
     writes them in place and returns only the attention output (B, C, d).
@@ -184,18 +199,19 @@ def attention_fwd(p: Attention, cfg: ModelConfig, x: torch.Tensor,
         out = fa_ops.flash_attention(q, k, v, causal=True, window=window,
                                      softcap=cfg.attn_logit_softcap)
         return out.reshape(B, C, H * D) @ p.wo
-    if window is not None:
-        raise NotImplementedError(
-            "a rolling sliding-window contiguous cache is not ported yet "
-            "(ROADMAP queue 1, item 7)")
     K, V = kv_cache
+    S_max = K.shape[1]
     act = (torch.ones(B, dtype=torch.bool, device=x.device) if active is None
            else active.bool())
     rows = torch.arange(B, device=x.device)[:, None].expand(B, C)
+    slots = positions % S_max if window is not None else positions
     keep = act[:, None, None, None]
-    K[rows, positions] = torch.where(keep, k, K[rows, positions])
-    V[rows, positions] = torch.where(keep, v, V[rows, positions])
-    lens = torch.where(act, positions[:, -1] + 1, 0).to(torch.int32)
+    K[rows, slots] = torch.where(keep, k, K[rows, slots])
+    V[rows, slots] = torch.where(keep, v, V[rows, slots])
+    lens = positions[:, -1] + 1
+    if window is not None:
+        lens = lens.clamp(max=S_max)
+    lens = torch.where(act, lens, 0).to(torch.int32)
     if C == 1:
         if cfg.attn_logit_softcap is not None:
             raise NotImplementedError("decode with an attention logit softcap "
@@ -248,6 +264,114 @@ def paged_attention_fwd(p: Attention, cfg: ModelConfig, x: torch.Tensor,
                                      softcap=cfg.attn_logit_softcap,
                                      kv_len=lens, ptab=ptab)
     return out.reshape(B, C, H * D) @ p.wo
+
+
+# --------------------------------------------------------------------------- #
+# MLA (multi-head latent attention: MiniCPM3 / DeepSeek-V2)
+# --------------------------------------------------------------------------- #
+class MLA(nn.Module):
+    """MLA weights in the JAX ``init_mla`` layout (d_in, d_out): ``wq_a``
+    (d, q_lora), ``wq_b`` (q_lora, H·(d_nope + d_rope)), ``wkv_a``
+    (d, r + d_rope), ``wk_b`` (r, H·d_nope), ``wv_b`` (r, H·d_v), ``wo``
+    (H·d_v, d); :func:`mla_fwd` and :func:`paged_mla_fwd` apply them."""
+
+    def __init__(self, cfg: ModelConfig, dtype: torch.dtype, device=None):
+        super().__init__()
+        m, d, H = cfg.mla, cfg.d_model, cfg.n_heads
+        qd = m.qk_nope_head_dim + m.qk_rope_head_dim
+        self.wq_a = _weight((d, m.q_lora_rank), dtype, device)
+        self.wq_b = _weight((m.q_lora_rank, H * qd), dtype, device)
+        self.wkv_a = _weight((d, m.kv_lora_rank + m.qk_rope_head_dim), dtype, device)
+        self.wk_b = _weight((m.kv_lora_rank, H * m.qk_nope_head_dim), dtype, device)
+        self.wv_b = _weight((m.kv_lora_rank, H * m.v_head_dim), dtype, device)
+        self.wo = _weight((H * m.v_head_dim, d), dtype, device)
+
+
+def _mla_qkv(p: MLA, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
+    """Absorbed query ``q_lat = q_nope · wk_b`` (B, S, H, r), the roped
+    query part (B, S, H, d_rope), and this chunk's latent cache entries
+    ``[c_lat, rope(k_rope)]`` (B, S, r + d_rope)."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H, r, dn = cfg.n_heads, m.kv_lora_rank, m.qk_nope_head_dim
+    q = ((x @ p.wq_a) @ p.wq_b).reshape(B, S, H, dn + m.qk_rope_head_dim)
+    q_rope = apply_rope(q[..., dn:], positions, cfg.rope_theta)
+    ckv = x @ p.wkv_a
+    k_rope = apply_rope(ckv[:, :, None, r:], positions, cfg.rope_theta)[:, :, 0]
+    ckv = torch.cat([ckv[..., :r], k_rope], dim=-1)
+    q_lat = torch.einsum("bshd,rhd->bshr", q[..., :dn], p.wk_b.reshape(r, H, dn))
+    return q_lat, q_rope, ckv
+
+
+def _mla_attend(p: MLA, cfg: ModelConfig, q_lat: torch.Tensor,
+                q_rope: torch.Tensor, ckv: torch.Tensor,
+                mask: torch.Tensor) -> torch.Tensor:
+    """Scores in latent space over the keys ``ckv`` (B, Sk, r + d_rope),
+    f32 scores and softmax, ``o = (p · c_k) · wv_b · wo``.  mask:
+    (B, 1, Sq, Sk) bool."""
+    m = cfg.mla
+    B, S, H, r = q_lat.shape
+    c_k, kr = ckv[..., :r], ckv[..., r:]
+    s = (torch.einsum("bshr,bkr->bhsk", q_lat.float(), c_k.float())
+         + torch.einsum("bshd,bkd->bhsk", q_rope.float(), kr.float()))
+    s = torch.where(mask, s * (1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)),
+                    NEG_INF)
+    pr = torch.softmax(s, dim=-1).to(q_lat.dtype)
+    o_lat = torch.einsum("bhsk,bkr->bshr", pr, c_k)
+    o = torch.einsum("bshr,rhd->bshd", o_lat, p.wv_b.reshape(r, H, m.v_head_dim))
+    return o.reshape(B, S, H * m.v_head_dim) @ p.wo
+
+
+def mla_fwd(p: MLA, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
+            kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+            active: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """MLA over the compressed latent (the JAX ``mla_fwd``).
+
+    * full-sequence mode, ``kv_cache`` None: causal attention over x.
+    * cache mode: ``kv_cache = (Ckv, kpos)``, this layer's latent buffer
+      (B, S_max, r + d_rope) and its absolute positions (B, S_max) int32
+      (-1: empty).  Rows flagged in ``active`` (B,) bool (None: all) write
+      this chunk's entries and positions at ``positions`` in place; the
+      attention is masked causally and by ``kpos >= 0``, as in JAX.
+
+    Unlike the JAX function, which returns the new buffers, the port
+    writes them in place and returns only the attention output (B, S, d).
+    """
+    B, S, _ = x.shape
+    q_lat, q_rope, ckv = _mla_qkv(p, cfg, x, positions)
+    if kv_cache is None:
+        return _mla_attend(p, cfg, q_lat, q_rope, ckv,
+                           _attn_mask(positions, positions, None))
+    Ckv, kpos = kv_cache
+    act = (torch.ones(B, dtype=torch.bool, device=x.device) if active is None
+           else active.bool())
+    rows = torch.arange(B, device=x.device)[:, None].expand(B, S)
+    Ckv[rows, positions] = torch.where(act[:, None, None], ckv, Ckv[rows, positions])
+    kpos[rows, positions] = torch.where(act[:, None], positions.to(kpos.dtype),
+                                        kpos[rows, positions])
+    mask = _attn_mask(positions, kpos, None) & (kpos >= 0)[:, None, None, :]
+    return _mla_attend(p, cfg, q_lat, q_rope, Ckv, mask)
+
+
+def paged_mla_fwd(p: MLA, cfg: ModelConfig, x: torch.Tensor, pos2: torch.Tensor,
+                  ckvp: torch.Tensor, ptab: torch.Tensor, lens: torch.Tensor,
+                  widx: torch.Tensor) -> torch.Tensor:
+    """MLA against one layer's paged latent pool ``ckvp`` (P, page,
+    r + d_rope), with :func:`paged_attention_fwd`'s contract: ``widx``
+    (B·C,) flat pool rows, inactive lanes already diverted into the trash
+    page; the chunk's entries are written in place (``index_copy_``).  The
+    mapped pages are gathered (``ckvp[ptab]``) and masked causally and by
+    ``lens``, as the JAX function does."""
+    B, C, _ = x.shape
+    P, page, w = ckvp.shape
+    q_lat, q_rope, ckv = _mla_qkv(p, cfg, x, pos2)
+    ckvp.view(P * page, w).index_copy_(0, widx, ckv.reshape(B * C, w))
+    S = ptab.shape[1] * page
+    keys = ckvp[ptab.long()].reshape(B, S, w)
+    kpos = torch.arange(S, device=x.device)[None].expand(B, S)
+    mask = (_attn_mask(pos2, kpos, None)
+            & (kpos < lens[:, None])[:, None, None, :])
+    return _mla_attend(p, cfg, q_lat, q_rope, keys, mask)
 
 
 # --------------------------------------------------------------------------- #

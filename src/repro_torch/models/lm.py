@@ -1,8 +1,9 @@
-"""Language model, dense, MoE and SSM subsets (port of ``src/repro/models/lm.py``).
+"""Language model, dense (GQA or MLA), MoE, vlm and SSM subsets (port of
+``src/repro/models/lm.py``).
 
 The JAX model is a pure function over a parameter pytree with a
 ``lax.scan`` over stacked layers; here it is an ``nn.Module`` (:class:`LM`,
-an ``nn.ModuleList`` of :class:`DecoderLayer` for the dense and moe
+an ``nn.ModuleList`` of :class:`DecoderLayer` for the dense, vlm and moe
 families or :class:`MambaLayer` for the ssm family) and the scan is a
 Python loop.  A moe layer's FFN is chosen by the ``moe_impl`` flag
 (:mod:`repro_torch.models.flags`) on every call.
@@ -11,11 +12,12 @@ JAX weights through :func:`params_from_jax` (numpy in, no JAX import).
 
 Two caches, as in the JAX package:
 
-* the paged KV pool of the dense and moe families (:func:`init_paged_cache`,
-  :func:`paged_step`);
-* the contiguous per-slot cache (:func:`init_cache`: dense ``k/v/pos``,
-  SSM ``conv/ssm``; :func:`step_with_cache`, :func:`decode_step`,
-  :func:`prefill_step`).
+* the paged pool of the pageable families (:func:`init_paged_cache`:
+  ``kp/vp``, MLA ``ckvp``; :func:`paged_step`);
+* the contiguous per-slot cache (:func:`init_cache`: dense ``k/v/pos`` —
+  a rolling ring of ``min(window, seq_len)`` rows for a sliding-window
+  config — MLA ``ckv/pos``, SSM ``conv/ssm``; :func:`step_with_cache`,
+  :func:`decode_step`, :func:`prefill_step`).
 
 Unlike the JAX functions, which return new caches, the steps write the
 caches in place, and only for the batch rows they are told to keep: a
@@ -41,10 +43,10 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device, working_dtype
 from repro_torch.models import flags, ssd
-from repro_torch.models.layers import (Attention, MoE, RMSNorm, SwiGLU,
-                                       attention_fwd, moe_dense_mix,
+from repro_torch.models.layers import (MLA, Attention, MoE, RMSNorm, SwiGLU,
+                                       attention_fwd, mla_fwd, moe_dense_mix,
                                        moe_dispatch, paged_attention_fwd,
-                                       softcap, swiglu)
+                                       paged_mla_fwd, softcap, swiglu)
 
 Cache = Dict[str, torch.Tensor]
 
@@ -61,35 +63,53 @@ def pageable(cfg: ModelConfig) -> bool:
             and cfg.local_global_every == 0)
 
 
-def paged_window(cfg: ModelConfig) -> Optional[int]:
-    """Sliding window for the paged mask: a paged SWA cache stores every
-    position and masks by window instead of ring-rotating."""
+def ring_window(cfg: ModelConfig) -> Optional[int]:
+    """The window of a contiguous cache that rolls (pure-SWA configs), or
+    None: the buffer then indexes by absolute position."""
     if cfg.sliding_window is not None and cfg.local_global_every == 0:
         return cfg.sliding_window
     return None
 
 
+def paged_window(cfg: ModelConfig) -> Optional[int]:
+    """Sliding window for the paged mask: a paged SWA cache stores every
+    position and masks by window instead of ring-rotating."""
+    return ring_window(cfg)
+
+
 def _check_served(cfg: ModelConfig) -> None:
-    if cfg.family == "ssm":
-        return
-    if (not pageable(cfg) or cfg.family not in ("dense", "moe")
-            or cfg.mla is not None):
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}): the port serves dense GQA, MoE and "
-            f"SSM configs; MLA, hybrid, local/global pairs and "
-            f"encoder-decoder come with later slices (ROADMAP queue 1, item 7)")
+    """The port serves the dense (GQA or MLA), vlm, moe and ssm families;
+    the rest raise with the ROADMAP item (queue 1) that brings them."""
+    later = ("hybrid layer groups (ROADMAP queue 1, item 7.5)"
+             if cfg.family == "hybrid" else
+             "local/global layer pairs (ROADMAP queue 1, item 7.4)"
+             if cfg.local_global_every else
+             "encoder-decoder (ROADMAP queue 1, item 7.6)"
+             if cfg.is_encoder_decoder else
+             None if cfg.family in ("dense", "vlm", "moe", "ssm") else
+             f"family {cfg.family!r}")
+    if later is not None:
+        raise NotImplementedError(f"{cfg.name} ({cfg.family}): {later} is not "
+                                  f"ported yet")
 
 
 def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
                      dtype: Optional[torch.dtype] = None,
                      device: DeviceLike = None) -> Cache:
     """Zero-filled page pools ``{"kp", "vp"}`` of shape
-    (L, n_pages, page_size, Hkv, D).  Physical page 0 is the trash page."""
+    (L, n_pages, page_size, Hkv, D), or for MLA the latent pool
+    ``{"ckvp"}`` (L, n_pages, page_size, r + d_rope).  Physical page 0 is
+    the trash page."""
     if not pageable(cfg):
         raise ValueError(f"family {cfg.family!r} is not pageable")
     _check_served(cfg)
     device = resolve_device(device)
     dtype = working_dtype(cfg) if dtype is None else dtype
+    if cfg.mla is not None:
+        m = cfg.mla
+        return {"ckvp": torch.zeros((cfg.n_layers, n_pages, page_size,
+                                     m.kv_lora_rank + m.qk_rope_head_dim),
+                                    dtype=dtype, device=device)}
     shape = (cfg.n_layers, n_pages, page_size, cfg.n_kv_heads, cfg.d_head)
     return {"kp": torch.zeros(shape, dtype=dtype, device=device),
             "vp": torch.zeros(shape, dtype=dtype, device=device)}
@@ -109,16 +129,17 @@ def _ffn_fwd(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 class DecoderLayer(nn.Module):
-    """Pre-norm decoder layer: rmsnorm → attention → rmsnorm → SwiGLU or
-    MoE.  ``attend(attn, h)`` applies the attention weights against
-    whichever cache the caller holds (the JAX ``_decoder_layer_fwd`` /
-    ``_paged_decoder_layer_fwd``, dense and moe path)."""
+    """Pre-norm decoder layer: rmsnorm → attention (GQA, or MLA when
+    ``cfg.mla`` is set) → rmsnorm → SwiGLU or MoE.  ``attend(attn, h)``
+    applies the attention weights against whichever cache the caller holds
+    (the JAX ``_decoder_layer_fwd`` / ``_paged_decoder_layer_fwd``, dense,
+    vlm and moe path)."""
 
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype, device=None):
         super().__init__()
         self.cfg = cfg
         self.ln1 = RMSNorm(cfg.d_model, cfg.norm_eps, device)
-        self.attn = Attention(cfg, dtype, device)
+        self.attn = (MLA if cfg.mla is not None else Attention)(cfg, dtype, device)
         self.ln2 = RMSNorm(cfg.d_model, cfg.norm_eps, device)
         self.ffn = (MoE(cfg, dtype, device) if cfg.family == "moe" else
                     SwiGLU(cfg.d_model, cfg.d_ff, dtype, device))
@@ -142,8 +163,9 @@ class MambaLayer(nn.Module):
 
 
 class LM(nn.Module):
-    """Decoder-only LM of the dense, moe or ssm family.  Parameter names
+    """Decoder-only LM of the dense, vlm, moe or ssm family.  Parameter names
     mirror the JAX pytree (``layers.{l}.attn.wq`` ↔ ``layers/attn/wq[l]``,
+    ``layers.{l}.attn.wkv_a`` ↔ ``layers/attn/wkv_a[l]`` for MLA,
     ``layers.{l}.ffn.router`` ↔ ``layers/ffn/router[l]``,
     ``layers.{l}.mixer.in_proj.w`` ↔ ``layers/mixer/in_proj/w[l]``)."""
 
@@ -267,17 +289,15 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
 
 
-def paged_cache_from_numpy(cache: Mapping, device: DeviceLike = None) -> Cache:
-    """JAX paged pools ``{"kp", "vp"}`` as numpy arrays → port tensors."""
-    device = resolve_device(device)
-    return {k: _to_torch(cache[k]).to(device) for k in ("kp", "vp")}
-
-
 def cache_from_numpy(cache: Mapping, device: DeviceLike = None) -> Cache:
-    """A JAX contiguous cache (dense ``k/v/pos`` or SSM ``conv/ssm``) as
-    numpy arrays → port tensors."""
+    """A JAX cache given as numpy arrays → port tensors, leaf by leaf: the
+    contiguous ``k/v/pos``, ``ckv/pos`` or ``conv/ssm``, or the paged
+    ``kp/vp`` or ``ckvp``."""
     device = resolve_device(device)
     return {k: _to_torch(v).to(device) for k, v in cache.items()}
+
+
+paged_cache_from_numpy = cache_from_numpy
 
 
 def _logits(model: LM, cfg: ModelConfig, x: torch.Tensor,
@@ -295,7 +315,7 @@ def _logits(model: LM, cfg: ModelConfig, x: torch.Tensor,
 # --------------------------------------------------------------------------- #
 def forward(model: LM, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     """Full-sequence forward from position 0 without a cache (the JAX
-    ``forward``, dense and ssm families). tokens (B, S) → logits (B, S, V)."""
+    ``forward``, served families). tokens (B, S) → logits (B, S, V)."""
     B, S = tokens.shape
     x = model.embed[tokens]
     if cfg.family == "ssm":
@@ -304,8 +324,9 @@ def forward(model: LM, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     else:
         positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
         for layer in model.layers:
-            x = layer(x, lambda a, h: attention_fwd(a, cfg, h, positions,
-                                                    cfg.sliding_window))
+            x = layer(x, lambda a, h: (
+                mla_fwd(a, cfg, h, positions) if cfg.mla is not None else
+                attention_fwd(a, cfg, h, positions, cfg.sliding_window)))
     return _logits(model, cfg, x, last_only=False)
 
 
@@ -314,9 +335,8 @@ def forward(model: LM, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------------- #
 def cache_seq_len(cfg: ModelConfig, seq_len: int) -> int:
     """Physical KV buffer length (rolling buffer for pure-SWA archs)."""
-    if cfg.sliding_window is not None and cfg.local_global_every == 0:
-        return min(cfg.sliding_window, seq_len)
-    return seq_len
+    window = ring_window(cfg)
+    return seq_len if window is None else min(window, seq_len)
 
 
 def init_cache(cfg: ModelConfig, B: int, seq_len: int,
@@ -324,8 +344,10 @@ def init_cache(cfg: ModelConfig, B: int, seq_len: int,
                device: DeviceLike = None) -> Cache:
     """Zero-filled contiguous cache for ``B`` slots of up to ``seq_len``
     positions: dense ``{"k", "v"}`` (L, B, S, Hkv, D) and ``"pos"``
-    (L, B, S) int32 filled with -1; ssm ``{"conv"}`` (L, B, d_conv-1,
-    conv_dim) and ``{"ssm"}`` (L, B, h, p, n)."""
+    (L, B, S) int32 filled with -1, ``S = cache_seq_len(cfg, seq_len)``
+    (a ring for a sliding-window config); MLA ``{"ckv"}`` (L, B, S,
+    r + d_rope) and ``"pos"``; ssm ``{"conv"}`` (L, B, d_conv-1, conv_dim)
+    and ``{"ssm"}`` (L, B, h, p, n)."""
     _check_served(cfg)
     device = resolve_device(device)
     dtype = working_dtype(cfg) if dtype is None else dtype
@@ -339,15 +361,15 @@ def init_cache(cfg: ModelConfig, B: int, seq_len: int,
                                     device=device),
                 "ssm": torch.zeros((L, B, nh, s.head_dim, s.d_state), dtype=dtype,
                                    device=device)}
-    if cfg.sliding_window is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: a rolling sliding-window contiguous cache is not "
-            f"ported yet (ROADMAP queue 1, item 7); serve it paged")
     S = cache_seq_len(cfg, seq_len)
+    pos = torch.full((L, B, S), -1, dtype=torch.int32, device=device)
+    if cfg.mla is not None:
+        m = cfg.mla
+        return {"ckv": torch.zeros((L, B, S, m.kv_lora_rank + m.qk_rope_head_dim),
+                                   dtype=dtype, device=device), "pos": pos}
     shape = (L, B, S, cfg.n_kv_heads, cfg.d_head)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device),
-            "pos": torch.full((L, B, S), -1, dtype=torch.int32, device=device)}
+            "v": torch.zeros(shape, dtype=dtype, device=device), "pos": pos}
 
 
 def step_with_cache(model: LM, cfg: ModelConfig, cache: Cache,
@@ -364,8 +386,9 @@ def step_with_cache(model: LM, cfg: ModelConfig, cache: Cache,
     by ``mask_cache_update`` — and they are written in place.  Attention
     rows outside ``write`` attend nothing (zeros).  SSM rows continue from
     their carried state: S == 1 runs the recurrent step, S > 1 the chunked
-    scan.  Returns logits (n, C, V) in f32, or (n, 1, V) when
-    ``last_only``, and the cache.
+    scan.  A sliding-window config writes its ring at ``pos2 % S``; a
+    chunk must not wrap it (the engine's chunk rule).  Returns logits
+    (n, C, V) in f32, or (n, 1, V) when ``last_only``, and the cache.
     """
     n, C = tokens.shape
     lo, hi = (0, next(iter(cache.values())).shape[1]) if rows is None else rows
@@ -384,18 +407,26 @@ def step_with_cache(model: LM, cfg: ModelConfig, cache: Cache,
             else:
                 conv.index_copy_(0, write, c2.index_select(0, write).to(conv.dtype))
                 ssm_st.index_copy_(0, write, s2.index_select(0, write).to(ssm_st.dtype))
-    else:
-        active = torch.ones(n, dtype=torch.bool, device=dev)
-        if write is not None:
-            active = torch.zeros_like(active).index_fill_(0, write, True)
-        pos = cache["pos"][:, lo:hi]                       # (L, n, S)
-        r = torch.arange(n, device=dev)[:, None].expand(n, C)
-        pos[:, r, pos2] = torch.where(active[:, None], pos2.to(pos.dtype),
-                                      pos[:, r, pos2])
+        return _logits(model, cfg, x, last_only), cache
+    active = torch.ones(n, dtype=torch.bool, device=dev)
+    if write is not None:
+        active = torch.zeros_like(active).index_fill_(0, write, True)
+    if cfg.mla is not None:
         for l, layer in enumerate(model.layers):
-            kv = (cache["k"][l, lo:hi], cache["v"][l, lo:hi])
-            x = layer(x, lambda a, h: attention_fwd(a, cfg, h, pos2, None,
-                                                    kv_cache=kv, active=active))
+            kv = (cache["ckv"][l, lo:hi], cache["pos"][l, lo:hi])
+            x = layer(x, lambda a, h: mla_fwd(a, cfg, h, pos2, kv_cache=kv,
+                                              active=active))
+        return _logits(model, cfg, x, last_only), cache
+    window = ring_window(cfg)
+    pos = cache["pos"][:, lo:hi]                           # (L, n, S)
+    r = torch.arange(n, device=dev)[:, None].expand(n, C)
+    slots = pos2 % pos.shape[2] if window is not None else pos2
+    pos[:, r, slots] = torch.where(active[:, None], pos2.to(pos.dtype),
+                                   pos[:, r, slots])
+    for l, layer in enumerate(model.layers):
+        kv = (cache["k"][l, lo:hi], cache["v"][l, lo:hi])
+        x = layer(x, lambda a, h: attention_fwd(a, cfg, h, pos2, window,
+                                                kv_cache=kv, active=active))
     return _logits(model, cfg, x, last_only), cache
 
 
@@ -479,8 +510,12 @@ def paged_step(model: LM, cfg: ModelConfig, cache: Cache,
     widx = phys * page_size + pos2 % page_size
     trash = (torch.arange(C, device=pos2.device) % page_size)[None, :]
     widx = torch.where(active[:, None], widx, trash).reshape(-1)
+    if cfg.mla is not None:
+        for layer, ckvp in zip(model.layers, cache["ckvp"]):
+            x = layer(x, lambda a, h: paged_mla_fwd(a, cfg, h, pos2, ckvp, ptab,
+                                                    lens, widx))
+        return _logits(model, cfg, x, last_only), cache
     window = paged_window(cfg)
-
     for layer, kp, vp in zip(model.layers, cache["kp"], cache["vp"]):
         x = layer(x, lambda a, h: paged_attention_fwd(
             a, cfg, h, pos2, window, kp, vp, ptab, lens, widx))
@@ -517,15 +552,20 @@ def _install_copy(dst: torch.Tensor, src) -> torch.Tensor:
 
 
 def _install_attn(dst_leaves, src_leaves, dst_pos: torch.Tensor, src_pos,
-                  slot: int, position: int) -> None:
+                  slot: int, window: Optional[int], position: int) -> None:
     """Scatter one slot's attention entries into the target buffers by
-    absolute position, overwriting the whole slot (non-rolling buffers).
+    absolute position, overwriting the whole slot.
 
     dst leaves: (N, B, S_dst, ...) sharing ``dst_pos`` (N, B, S_dst); src
     leaves: (N, S_src, ...) host arrays sharing ``src_pos`` (N, S_src).
-    Beyond the JAX checks, every position below ``position`` must be in the
-    state: the port's kernels read a slot's first ``kv_len`` rows.
-    Everything is checked before anything is written.
+    Non-rolling buffers (``window`` None) index by position; a ring indexes
+    by ``position % S_dst`` and keeps positions ``>= position - S_dst``,
+    refusing when one still inside the window would be lost (the JAX
+    rule).  Beyond the JAX checks, every position the next decode reads —
+    ``[0, position)``, or the ring's ``[position - S_dst + 1, position)`` —
+    must be in the state: the port's kernels read a slot's first
+    ``kv_len`` rows instead of masking by ``pos``.  Everything is checked
+    before anything is written.
     """
     src_pos = np.asarray(src_pos)
     N, S_src = src_pos.shape
@@ -533,17 +573,28 @@ def _install_attn(dst_leaves, src_leaves, dst_pos: torch.Tensor, src_pos,
              f"layer-stack mismatch: {dst_pos.shape[0]} != {N}")
     S_dst = int(dst_pos.shape[2])
     valid = src_pos >= 0
-    _require(position < S_dst,
-             f"next decode position {position} outside target buffer of "
-             f"length {S_dst}")
-    _require(not valid.any() or int(src_pos.max()) < S_dst,
-             f"cached position {int(src_pos.max())} outside target buffer "
-             f"of length {S_dst}")
-    have = np.zeros((N, S_dst), bool)
-    n_idx, s_idx = np.nonzero(valid)
-    d_idx = src_pos[n_idx, s_idx]
-    have[n_idx, d_idx] = True
-    _require(bool(have[:, :position].all()),
+    if window is None:
+        _require(position < S_dst,
+                 f"next decode position {position} outside target buffer of "
+                 f"length {S_dst}")
+        _require(not valid.any() or int(src_pos.max()) < S_dst,
+                 f"cached position {int(src_pos.max())} outside target buffer "
+                 f"of length {S_dst}")
+        keep, lo = valid, 0
+        dest = np.where(valid, src_pos, 0)
+    else:
+        keep = valid & (src_pos >= position - S_dst)
+        _require(not (valid & (src_pos > position - window) & ~keep).any(),
+                 f"target ring of length {S_dst} cannot hold the positions "
+                 f"still visible inside window {window}")
+        lo = max(0, position - S_dst + 1)
+        dest = np.where(keep, src_pos, 0) % S_dst
+    n_idx, s_idx = np.nonzero(keep)
+    d_idx = dest[n_idx, s_idx]
+    have = np.zeros((N, position + 1), bool)
+    inside = src_pos[n_idx, s_idx] <= position
+    have[n_idx[inside], src_pos[n_idx, s_idx][inside]] = True
+    _require(bool(have[:, lo:position].all()),
              "state lacks positions the request still attends to")
     for dst, src in zip(dst_leaves, src_leaves):
         _require(tuple(src.shape[2:]) == tuple(dst.shape[3:])
@@ -570,7 +621,8 @@ def install_slot(cfg: ModelConfig, cache: Cache, slot: int, state: Mapping,
 
     ``position`` is the request's next decode position (its cache holds
     positions < ``position``).  The whole slot is overwritten, so a previous
-    occupant can never leak through.  Raises :class:`SlotMigrationError`
+    occupant can never leak through.  A sliding-window config's ring takes
+    the state rotated by position.  Raises :class:`SlotMigrationError`
     (cache untouched) when the state cannot be represented in the target
     cache; the caller then falls back to recompute-from-continuation.
     """
@@ -581,10 +633,12 @@ def install_slot(cfg: ModelConfig, cache: Cache, slot: int, state: Mapping,
             cache["conv"][:, slot].copy_(conv)
             cache["ssm"][:, slot].copy_(ssm_st)
             return cache
-        _require(cfg.sliding_window is None and "k" in cache,
-                 f"{cfg.name}: no contiguous dense cache to install into")
+        if cfg.mla is not None:
+            _install_attn([cache["ckv"]], [state["ckv"]], cache["pos"],
+                          state["pos"], slot, None, position)
+            return cache
         _install_attn([cache["k"], cache["v"]], [state["k"], state["v"]],
-                      cache["pos"], state["pos"], slot, position)
+                      cache["pos"], state["pos"], slot, ring_window(cfg), position)
         return cache
     except SlotMigrationError:
         raise
@@ -599,15 +653,19 @@ def extract_paged_slot(cfg: ModelConfig, cache: Cache, pages: Sequence[int],
     (:func:`extract_slot`'s layout), so a paged export installs into either
     a contiguous target (:func:`install_slot`) or a paged one
     (:func:`install_paged_slot`)."""
-    idx = torch.as_tensor(list(pages), dtype=torch.long, device=cache["kp"].device)
+    pools = {"ckv": "ckvp"} if cfg.mla is not None else {"k": "kp", "v": "vp"}
+    first = cache[next(iter(pools.values()))]
+    idx = torch.as_tensor(list(pages), dtype=torch.long, device=first.device)
     S_src = len(pages) * page_size
+    L = first.shape[0]
     ar = np.arange(S_src)
     pos_row = np.where(ar < position, ar, -1).astype(np.int32)
-    k, v = cache["kp"][:, idx], cache["vp"][:, idx]
-    L = k.shape[0]
-    return {"k": _to_numpy(k.reshape(L, S_src, *k.shape[3:])),
-            "v": _to_numpy(v.reshape(L, S_src, *v.shape[3:])),
-            "pos": np.broadcast_to(pos_row, (L, S_src)).copy()}
+    out = {}
+    for key, pool in pools.items():
+        t = cache[pool][:, idx]
+        out[key] = _to_numpy(t.reshape(L, S_src, *t.shape[3:]))
+    out["pos"] = np.broadcast_to(pos_row, (L, S_src)).copy()
+    return out
 
 
 def install_paged_slot(cfg: ModelConfig, cache: Cache, pages: Sequence[int],
@@ -621,8 +679,11 @@ def install_paged_slot(cfg: ModelConfig, cache: Cache, pages: Sequence[int],
     try:
         src_pos = np.asarray(state["pos"])
         L, S_src = src_pos.shape
-        dst_leaves = [cache["kp"], cache["vp"]]
-        src_leaves = [state["k"], state["v"]]
+        if cfg.mla is not None:
+            dst_leaves, src_leaves = [cache["ckvp"]], [state["ckv"]]
+        else:
+            dst_leaves = [cache["kp"], cache["vp"]]
+            src_leaves = [state["k"], state["v"]]
         _require(int(dst_leaves[0].shape[0]) == L,
                  f"layer-stack mismatch: {dst_leaves[0].shape[0]} != {L}")
         _require(bool((src_pos == src_pos[0]).all()),

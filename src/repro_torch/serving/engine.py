@@ -297,13 +297,20 @@ class Engine(RequestSchedulingMixin):
                                   if c <= max(max_prefill_chunk, 1)) or (1,)
 
     def _allowed_chunk_sizes(self, cap: int) -> Tuple[int, ...]:
-        """Power-of-two chunk sizes of the contiguous path: a chunk longer
-        than the SSD scan's chunk must be a multiple of it.  (The JAX rule
-        also bounds chunks by a rolling sliding-window ring, a cache the
-        port does not have yet.)"""
+        """Power-of-two chunk sizes of the contiguous path (the JAX rule): a
+        chunk longer than the SSD scan's chunk must be a multiple of it, and
+        a rolling sliding-window ring's length must be a multiple of every
+        chunk.  A multi-token write past the ring would evict rows that the
+        chunk's own earlier queries still need, so chunking is only sound
+        while the whole prefix fits the ring: ``_rolling_limit`` bounds
+        where chunks may be used (see :meth:`_prefill_chunks`)."""
         ssd_chunk = self.cfg.ssm.chunk_size if self.cfg.ssm is not None else 0
+        ring = (lm.cache_seq_len(self.cfg, self.max_seq_len)
+                if lm.ring_window(self.cfg) is not None else None)
+        self._rolling_limit = ring
         return tuple(c for c in _CHUNK_CANDIDATES
                      if c <= max(cap, 1)
+                     and not (ring is not None and ring % c)
                      and not (ssd_chunk and c > ssd_chunk and c % ssd_chunk)) or (1,)
 
     def _paged_exec(self, tokens: np.ndarray, positions: np.ndarray,
@@ -635,13 +642,17 @@ class Engine(RequestSchedulingMixin):
     def _prefill_chunks(self, st: RequestState, prompt: List[int]) -> int:
         """Contiguous prefill in descending power-of-two chunks, one
         dispatch each over the slot's row only (rows are independent); the
-        first chunk wipes the slot's previous occupant."""
+        first chunk wipes the slot's previous occupant.  Past a rolling
+        ring's length only single tokens are sound (the JAX rule)."""
         slot = st.slot
         prompt_arr = np.asarray(prompt, np.int32)
         off, last = 0, None
         remaining = len(prompt)
         for c in self._chunk_sizes:
             while remaining >= c:
+                if (self._rolling_limit is not None and c > 1
+                        and off + c > self._rolling_limit):
+                    break
                 last = self._contig_exec(
                     prompt_arr[None, off:off + c],
                     np.arange(off, off + c, dtype=np.int32)[None],

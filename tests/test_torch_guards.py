@@ -141,12 +141,12 @@ def test_ops_route_only_cpu_and_cuda():
 def test_unported_paths_raise_not_implemented():
     cfg = get_config("qwen2-1.5b").reduced()
     model = lm.init_params(cfg, device="cpu")
-    swa = dataclasses.replace(cfg, sliding_window=16)
-    with pytest.raises(NotImplementedError, match="rolling sliding-window"):
-        Engine(swa, lm.init_params(swa, device="cpu"), paged=False, device="cpu")
-    moe = get_config("mixtral-8x7b").reduced()
-    with pytest.raises(NotImplementedError, match="rolling sliding-window"):
-        Engine(moe, lm.init_params(moe, device="cpu"), paged=False, device="cpu")
+    pairs = dataclasses.replace(cfg, sliding_window=16, local_global_every=2)
+    with pytest.raises(NotImplementedError, match="local/global"):
+        lm.init_cache(pairs, 1, 32, device="cpu")
+    encdec = dataclasses.replace(cfg, is_encoder_decoder=True, n_encoder_layers=2)
+    with pytest.raises(NotImplementedError, match="encoder-decoder"):
+        lm.init_params(encdec, device="cpu")
     hybrid = dataclasses.replace(get_config("mamba2-1.3b").reduced(),
                                  family="hybrid", attn_every=2)
     with pytest.raises(NotImplementedError, match="hybrid"):
