@@ -18,6 +18,8 @@ _ARCH_MODULES: Dict[str, str] = {
     "mixtral-8x22b": "mixtral_8x22b",
     "chameleon-34b": "chameleon_34b",
     "minicpm3-4b": "minicpm3_4b",
+    "gemma2-9b": "gemma2_9b",
+    "zamba2-7b": "zamba2_7b",
 }
 
 

@@ -56,6 +56,17 @@
 //   is computed on the card from kv_len, so no length crosses to the host;
 //   its arithmetic lives in common.cuh, shared with the decode kernels
 //   (n_cap never binds here: pairs * n_cap >= target).
+// * Head dims 64, 112, 128 and 256.  D 112 (zamba2) is 14 16-byte chunks
+//   and 7 k16 steps a row: every loop steps D by 16 (one ldmatrix_x4 per
+//   k-step of S, and per 16 output columns of P V), and rows are padded, not
+//   swizzled, so no step assumes a power of two.  At D 256 (gemma2) the
+//   64 x 256 f32 O accumulator alone takes 128 registers a thread, so the
+//   Q fragments are read from shared memory at each k-step instead of being
+//   held (D <= 128 holds them); Q plus a 2-stage K/V ring is 165 KB, one
+//   block per SM, and the host's plan target follows the shared memory
+//   (kernels/split_plan.py::target).  The f32 body at
+//   D 256 loads each sub-tile straight into shared memory instead of through
+//   registers, which would not hold a sub-tile next to the accumulator.
 
 #include <stddef.h>
 #include <stdint.h>
@@ -214,6 +225,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_tc_kernel(const Args
   const bf16* vg = static_cast<const bf16*>(a.v);
   const int tid = threadIdx.x, lane = tid & 31, wr = (tid >> 5) * 16;
   const int nt = w.t_end - w.t_begin;
+  constexpr bool kQRegs = D <= 128;          // else Q fragments come from smem
 
   auto load_tile = [&](int t, int st) {
     bf16* ks = ring + st * 2 * L::kKV;
@@ -256,7 +268,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_tc_kernel(const Args
     const bool capped = a.softcap > 0.f;
     const float s_mul = capped ? a.scale / a.softcap : a.scale * kLog2e;
     const float cap_mul = a.softcap * kLog2e;
-    uint32_t qf[D / 16][4];
+    uint32_t qf[kQRegs ? D / 16 : 1][4];
 
     for (int it = 0; it < nt; ++it) {
       const int st = it & 1;
@@ -264,7 +276,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_tc_kernel(const Args
       cp_async_commit();
       cp_async_wait<1>();                    // tile it (and Q) have landed
       __syncthreads();
-      if (it == 0) {
+      if (kQRegs && it == 0) {
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)
           ldmatrix_x4(qf[kk], qs + (wr + (lane & 15)) * L::kLd + kk * 16 + (lane >> 4) * 8);
@@ -278,15 +290,20 @@ __global__ void __launch_bounds__(kThreads) flash_attention_tc_kernel(const Args
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t qt[4];
+        if (!kQRegs)
+          ldmatrix_x4(qt, qs + (wr + (lane & 15)) * L::kLd + kk * 16 + (lane >> 4) * 8);
+        const uint32_t(&qa)[4] = kQRegs ? qf[kQRegs ? kk : 0] : qt;
 #pragma unroll
         for (int j = 0; j < NT; j += 2) {
           uint32_t bk[4];
           ldmatrix_x4(bk, ks + (j * 8 + (lane & 7) + ((lane >> 4) << 3)) * L::kLd + kk * 16 +
                               ((lane >> 3) & 1) * 8);
-          mma_bf16(s[j], qf[kk], bk[0], bk[1]);
-          mma_bf16(s[j + 1], qf[kk], bk[2], bk[3]);
+          mma_bf16(s[j], qa, bk[0], bk[1]);
+          mma_bf16(s[j + 1], qa, bk[2], bk[3]);
         }
+      }
 
       // scores in log2 units; masked entries kNegInf
       const int kt = (w.t_begin + it) * kTile;
@@ -444,8 +461,9 @@ __global__ void __launch_bounds__(kThreads) flash_attention_simt_kernel(const Ar
   __syncthreads();
 
   constexpr int kDv = D / 8;                     // Pack8 vectors per row
-  constexpr int kLoads = kSub * kDv / kThreads;  // per thread per sub-tile
-  static_assert(kSub * kDv % kThreads == 0, "tile must split evenly");
+  constexpr int kVecs = kSub * kDv;              // per sub-tile
+  constexpr bool kPrefetch = D <= 128;           // the next sub-tile in registers
+  constexpr int kLoads = kPrefetch ? (kVecs + kThreads - 1) / kThreads : 1;
   Pack8<float> kr[kLoads], vr[kLoads];
   auto fetch = [&](int kt) {
 #pragma unroll
@@ -453,6 +471,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_simt_kernel(const Ar
       const int i = tid + j * kThreads;
       const int c = i / kDv;
       const int kk = kt + c;
+      if (i >= kVecs) break;                     // D 112: 448 vectors, 4 rounds
       if (kk < w.k_hi) {
         const size_t off = kv_offset(a, w.b, w.kvh, kk) + (i - c * kDv) * 8;
         kr[j].load(kg + off);
@@ -463,30 +482,47 @@ __global__ void __launch_bounds__(kThreads) flash_attention_simt_kernel(const Ar
       }
     }
   };
+  auto put = [&](int i, const Pack8<float>& kp, const Pack8<float>& vp) {
+    const int c = i / kDv;
+    const int d = (i - c * kDv) * 8;
+    float kf[8], vf[8];
+    kp.unpack(kf);
+    vp.unpack(vf);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      Ks[c * (D + 1) + d + e] = kf[e];
+      Vs[c * D + d + e] = vf[e];
+    }
+  };
   auto stash = [&]() {
 #pragma unroll
-    for (int j = 0; j < kLoads; ++j) {
-      const int i = tid + j * kThreads;
+    for (int j = 0; j < kLoads; ++j)
+      if (tid + j * kThreads < kVecs) put(tid + j * kThreads, kr[j], vr[j]);
+  };
+  auto load_direct = [&](int kt) {               // D 256: global -> shared
+    for (int i = tid; i < kVecs; i += kThreads) {
       const int c = i / kDv;
-      const int d = (i - c * kDv) * 8;
-      float kf[8], vf[8];
-      kr[j].unpack(kf);
-      vr[j].unpack(vf);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        Ks[c * (D + 1) + d + e] = kf[e];
-        Vs[c * D + d + e] = vf[e];
+      Pack8<float> kp, vp;
+      if (kt + c < w.k_hi) {
+        const size_t off = kv_offset(a, w.b, w.kvh, kt + c) + (i - c * kDv) * 8;
+        kp.load(kg + off);
+        vp.load(vg + off);
+      } else {
+        kp.zero();
+        vp.zero();
       }
+      put(i, kp, vp);
     }
   };
 
   const int k_end = min(w.t_end * kTile, w.k_hi);
   const int kt0 = max(w.t_begin * kTile, (w.k_lo / kSub) * kSub);
-  if (kt0 < k_end) fetch(kt0);
+  if (kPrefetch && kt0 < k_end) fetch(kt0);
   for (int kt = kt0; kt < k_end; kt += kSub) {
-    stash();
+    if (kPrefetch) stash();
+    else load_direct(kt);
     __syncthreads();
-    if (kt + kSub < k_end) fetch(kt + kSub);   // in flight during this sub-tile
+    if (kPrefetch && kt + kSub < k_end) fetch(kt + kSub);   // in flight during this sub-tile
 
     float s[4][4];
 #pragma unroll
@@ -676,13 +712,15 @@ cudaError_t launch(const Args& a, int grid, cudaStream_t stream) {
 template <typename T>
 cudaError_t dispatch_d(const Args& a, int grid, cudaStream_t stream) {
   if (a.D == 64) return launch<T, 64>(a, grid, stream);
+  if (a.D == 112) return launch<T, 112>(a, grid, stream);
   if (a.D == 128) return launch<T, 128>(a, grid, stream);
+  if (a.D == 256) return launch<T, 256>(a, grid, stream);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  D in {64, 128}.  ptab == nullptr:
+// dtype: 0 = float32, 1 = bfloat16.  D in {64, 112, 128, 256}.  ptab == nullptr:
 // contiguous k/v (B, Sk, Hkv, D); else k/v are page pools (P, 2^page_shift,
 // Hkv, D), ptab (B, n_ptab) int32, and Sk = n_ptab << page_shift.
 // window <= 0: none; softcap <= 0: none.  grid = target + pairs * B work
@@ -727,10 +765,15 @@ extern "C" int flash_attention(int dtype, const void* q, const void* k, const vo
 
 // Dynamic shared memory per block of the split kernel (bytes), from the
 // layouts above; 0 for an unsupported (dtype, D).
-extern "C" int flash_attention_smem_bytes(int dtype, int D) {
-  if (dtype == 0 && D == 64) return (int)smem_bytes<float, 64>();
-  if (dtype == 0 && D == 128) return (int)smem_bytes<float, 128>();
-  if (dtype == 1 && D == 64) return (int)smem_bytes<bf16, 64>();
-  if (dtype == 1 && D == 128) return (int)smem_bytes<bf16, 128>();
+template <typename T>
+static int smem_of(int D) {
+  if (D == 64) return (int)smem_bytes<T, 64>();
+  if (D == 112) return (int)smem_bytes<T, 112>();
+  if (D == 128) return (int)smem_bytes<T, 128>();
+  if (D == 256) return (int)smem_bytes<T, 256>();
   return 0;
+}
+
+extern "C" int flash_attention_smem_bytes(int dtype, int D) {
+  return dtype == 0 ? smem_of<float>(D) : dtype == 1 ? smem_of<bf16>(D) : 0;
 }

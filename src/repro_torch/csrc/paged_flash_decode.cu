@@ -54,8 +54,21 @@
 //   (each thread merges a float4 of a query head online, 8 splits' loads in
 //   flight), writes the output and resets the counter to 0 for the next
 //   launch.  n_cap = 16 keeps that merge to two rounds of loads.
+// * An optional tanh logit softcap, cap * tanh(s / cap) on each scaled
+//   score before the mask (gemma2's 50), in both bodies and both modes.
+//   The TPU decode kernels have none; the reference decodes softcapped
+//   configs on its gather path (src/repro/models/layers.py:155-157).
+// * Head dims 64, 112, 128 and 256.  D 112 (zamba2) is 7 k16 steps and 14
+//   16-byte chunks a row; every loop steps D by 16 and rows are padded, not
+//   swizzled.  At D 256 (gemma2) the 16 x 256 f32 O accumulator takes 128
+//   registers a thread, so the Q fragments are read from shared memory at
+//   each k-step instead of being held (D <= 128 holds them); Q and the 4
+//   warps' 2-stage rings are 140 KB, one block per SM, and the host's plan
+//   target follows the shared memory (kernels/split_plan.py::target).  The
+//   f32 body gives each thread two columns at D 256 and leaves 16 threads
+//   without a column at D 112.
 //
-// D in {64, 128}; G = H/Hkv <= 16.
+// G = H/Hkv <= 16.
 
 #include <stddef.h>
 #include <stdint.h>
@@ -98,6 +111,7 @@ struct Args {
   int target;               // blocks the plan aims at
   int n_cap;                // most splits of a lane; 1: none
   float scale;
+  float softcap;            // <= 0: none
 };
 
 __device__ __forceinline__ repro::Plan plan_of(const Args& a) {
@@ -312,8 +326,11 @@ __global__ void __launch_bounds__(kThreads) decode_split_tc_kernel(const Args a)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  uint32_t qf[D / 16][4];
-  const float s_mul = a.scale * kLog2e;
+  constexpr bool kQRegs = D <= 128;          // else Q fragments come from smem
+  uint32_t qf[kQRegs ? D / 16 : 1][4];
+  const bool capped = a.softcap > 0.f;
+  const float s_mul = capped ? a.scale / a.softcap : a.scale * kLog2e;
+  const float cap_mul = a.softcap * kLog2e;
 
   load_chunk(w.t_begin, 0);
   cp_async_commit();
@@ -325,7 +342,7 @@ __global__ void __launch_bounds__(kThreads) decode_split_tc_kernel(const Args a)
     if (it == 0) {
       __syncthreads();                       // Q, copied by every thread
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
+      for (int kk = 0; kk < (kQRegs ? D / 16 : 0); ++kk)
         ldmatrix_x4(qf[kk], qs + (lane & 15) * L::kLd + kk * 16 + (lane >> 4) * 8);
     } else {
       __syncwarp();
@@ -343,18 +360,20 @@ __global__ void __launch_bounds__(kThreads) decode_split_tc_kernel(const Args a)
         for (int e = 0; e < 4; ++e) s[j][e] = s2[j][e] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t bk[4];
+        uint32_t bk[4], qt[4];
+        if (!kQRegs) ldmatrix_x4(qt, qs + (lane & 15) * L::kLd + kk * 16 + (lane >> 4) * 8);
+        const uint32_t(&qa)[4] = kQRegs ? qf[kQRegs ? kk : 0] : qt;
         ldmatrix_x4(bk, ks + ((lane & 7) + ((lane >> 4) << 3)) * L::kLd + kk * 16 +
                             ((lane >> 3) & 1) * 8);
-        mma_bf16(kk & 1 ? s2[0] : s[0], qf[kk], bk[0], bk[1]);
-        mma_bf16(kk & 1 ? s2[1] : s[1], qf[kk], bk[2], bk[3]);
+        mma_bf16(kk & 1 ? s2[0] : s[0], qa, bk[0], bk[1]);
+        mma_bf16(kk & 1 ? s2[1] : s[1], qa, bk[2], bk[3]);
       }
 #pragma unroll
       for (int j = 0; j < 2; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[j][e] += s2[j][e];
 
-      // scores in log2 units; keys outside [lo, hi) kNegInf
+      // scores in log2 units (softcapped first); keys outside [lo, hi) kNegInf
       const bool clear = k0 >= w.lo && k0 + kChunk <= w.hi;
       float mx[2] = {m[0], m[1]};
 #pragma unroll
@@ -362,6 +381,7 @@ __global__ void __launch_bounds__(kThreads) decode_split_tc_kernel(const Args a)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           float x = s[j][e] * s_mul;
+          if (capped) x = cap_mul * tanhf(x);
           if (!clear) {
             const int kp = k0 + j * 8 + 2 * (lane & 3) + (e & 1);
             if (kp < w.lo || kp >= w.hi) x = kNegInf;
@@ -487,12 +507,15 @@ constexpr size_t simt_smem_bytes() {
 // Per 32-key sub-tile: the block stores K (rows padded, no bank conflicts)
 // and V in shared memory; warp w scores query heads w, w + 4, ... (lane =
 // key) and updates their (m, l) with shuffles; then thread t accumulates
-// column t % D of its heads.  The keys are exactly [lo, hi) of the item's
-// tiles, so nothing is masked.
+// columns t % CW (+ CW) of its heads.  The keys are exactly [lo, hi) of the
+// item's tiles, so nothing is masked.
 template <int D>
 __global__ void __launch_bounds__(kThreads) decode_split_simt_kernel(const Args a) {
-  constexpr int RG = kThreads / D;          // heads sharing a column: 1 or 2 groups
+  constexpr int CW = D < kThreads ? D : kThreads;   // threads across a row
+  constexpr int CPT = D / CW;               // columns per thread: 2 at D 256
+  constexpr int RG = kThreads / CW;         // heads sharing a column: 1 or 2 groups
   constexpr int RPT = kMaxG / RG;           // heads per thread
+  static_assert(D % CW == 0, "columns must split evenly");
   Work w;
   if (!find_work<D>(a, w)) return;
   const float* q = static_cast<const float*>(a.q);
@@ -518,10 +541,12 @@ __global__ void __launch_bounds__(kThreads) decode_split_simt_kernel(const Args 
     ms[tid] = kNegInf;
     ls[tid] = 0.f;
   }
-  const int col = tid % D, g0 = tid / D;
-  float acc[RPT];
+  const int col = tid % CW, g0 = tid / CW;  // g0 == RG: no column (D 112)
+  float acc[CPT][RPT];
 #pragma unroll
-  for (int k = 0; k < RPT; ++k) acc[k] = 0.f;
+  for (int c = 0; c < CPT; ++c)
+#pragma unroll
+    for (int k = 0; k < RPT; ++k) acc[c][k] = 0.f;
 
   for (int kt = k_begin; kt < k_end; kt += kSub) {
     const int nk = min(kSub, k_end - kt);
@@ -549,7 +574,9 @@ __global__ void __launch_bounds__(kThreads) decode_split_simt_kernel(const Args 
 #pragma unroll 8
       for (int d = 0; d < D; ++d) s = fmaf(qr[d], kr[d], s);
       const bool ok = lane < nk;
-      const float x = ok ? s * a.scale : kNegInf;
+      float x = s * a.scale;
+      if (a.softcap > 0.f) x = a.softcap * tanhf(x / a.softcap);
+      x = ok ? x : kNegInf;
       float mx = x;
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
@@ -571,18 +598,23 @@ __global__ void __launch_bounds__(kThreads) decode_split_simt_kernel(const Args 
 #pragma unroll
     for (int k = 0; k < RPT; ++k) {
       const int g = g0 + k * RG;
-      if (g >= w.G) break;
+      if (g0 >= RG || g >= w.G) break;
       const float* pr = Ps + g * kSub;
-      float s = acc[k] * als[g];
-      for (int c = 0; c < nk; ++c) s = fmaf(pr[c], Vs[c * D + col], s);
-      acc[k] = s;
+#pragma unroll
+      for (int cc = 0; cc < CPT; ++cc) {
+        float s = acc[cc][k] * als[g];
+        for (int c = 0; c < nk; ++c) s = fmaf(pr[c], Vs[c * D + col + cc * CW], s);
+        acc[cc][k] = s;
+      }
     }
   }
 #pragma unroll
   for (int k = 0; k < RPT; ++k) {
     const int g = g0 + k * RG;
-    if (g >= w.G) break;
-    finish<D>(a, w, g, col, acc[k], ms[g], ls[g]);
+    if (g0 >= RG || g >= w.G) break;
+#pragma unroll
+    for (int cc = 0; cc < CPT; ++cc)
+      finish<D>(a, w, g, col + cc * CW, acc[cc][k], ms[g], ls[g]);
   }
   if (w.slot >= 0) combine_if_last<float, D>(a, w);
 }
@@ -606,12 +638,19 @@ cudaError_t launch(const Args& a, int grid, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t dispatch_d(int D, const Args& a, int grid, cudaStream_t stream) {
+  if (D == 64) return launch<T, 64>(a, grid, stream);
+  if (D == 112) return launch<T, 112>(a, grid, stream);
+  if (D == 128) return launch<T, 128>(a, grid, stream);
+  if (D == 256) return launch<T, 256>(a, grid, stream);
+  return cudaErrorInvalidValue;
+}
+
 cudaError_t dispatch(int dtype, int D, const Args& a, int grid, cudaStream_t stream) {
   if (a.Hkv <= 0 || a.H % a.Hkv || a.H / a.Hkv > kMaxG) return cudaErrorInvalidValue;
-  if (dtype == 0 && D == 64) return launch<float, 64>(a, grid, stream);
-  if (dtype == 0 && D == 128) return launch<float, 128>(a, grid, stream);
-  if (dtype == 1 && D == 64) return launch<bf16, 64>(a, grid, stream);
-  if (dtype == 1 && D == 128) return launch<bf16, 128>(a, grid, stream);
+  if (dtype == 0) return dispatch_d<float>(D, a, grid, stream);
+  if (dtype == 1) return dispatch_d<bf16>(D, a, grid, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -619,7 +658,7 @@ Args make_args(const void* q, const void* k, const void* v, const void* ptab,
                const void* kv_len, void* out, void* part_acc, void* part_ml,
                void* counters, int B, int H,
                int Hkv, int page_shift, int n_ptab, int Sk, int window, float scale,
-               int target, int n_cap) {
+               float softcap, int target, int n_cap) {
   Args a;
   a.q = q;
   a.k = k;
@@ -640,14 +679,16 @@ Args make_args(const void* q, const void* k, const void* v, const void* ptab,
   a.target = target;
   a.n_cap = n_cap;
   a.scale = scale;
+  a.softcap = softcap;
   return a;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; D in {64, 128}; H / Hkv <= 16.  q
-// (B, H, D); kp, vp (P, 2^page_shift, Hkv, D) page pools; ptab (B, n_ptab)
-// int32; kv_len (B,) int32.  window <= 0: none.  grid = target + Hkv * B
+// dtype: 0 = float32, 1 = bfloat16; D in {64, 112, 128, 256}; H / Hkv <= 16.
+// q (B, H, D); kp, vp (P, 2^page_shift, Hkv, D) page pools; ptab (B, n_ptab)
+// int32; kv_len (B,) int32.  window <= 0: none; softcap <= 0: none.
+// grid = target + Hkv * B
 // work items; n_cap bounds a lane's splits (1: no split); when n_cap > 1,
 // part_acc / part_ml hold grid items of G rows and counters B * Hkv ints,
 // zero before the launch and after it (else all three are unused).
@@ -657,11 +698,11 @@ extern "C" int paged_flash_decode(int dtype, const void* q, const void* kp, cons
                                   void* part_acc, void* part_ml, void* counters, int B,
                                   int H, int Hkv,
                                   int D, int page_shift, int n_ptab, int window,
-                                  float scale, int target, int n_cap, int grid,
-                                  void* stream) {
+                                  float scale, float softcap, int target, int n_cap,
+                                  int grid, void* stream) {
   const Args a = make_args(q, kp, vp, ptab, kv_len, out, part_acc, part_ml, counters, B, H,
                            Hkv, page_shift, n_ptab, n_ptab << page_shift, window, scale,
-                           target, n_cap);
+                           softcap, target, n_cap);
   return dispatch(dtype, D, a, grid, static_cast<cudaStream_t>(stream));
 }
 
@@ -670,19 +711,24 @@ extern "C" int paged_flash_decode(int dtype, const void* q, const void* kp, cons
 extern "C" int flash_decode(int dtype, const void* q, const void* k, const void* v,
                             const void* kv_len, void* out, void* part_acc, void* part_ml,
                             void* counters, int B, int H, int Hkv, int D, int S,
-                            float scale, int target,
+                            float scale, float softcap, int target,
                             int n_cap, int grid, void* stream) {
   const Args a = make_args(q, k, v, nullptr, kv_len, out, part_acc, part_ml, counters, B, H,
-                           Hkv, 0, 0, S, -1, scale, target, n_cap);
+                           Hkv, 0, 0, S, -1, scale, softcap, target, n_cap);
   return dispatch(dtype, D, a, grid, static_cast<cudaStream_t>(stream));
 }
 
 // Dynamic shared memory per block of the split kernel (bytes), from the
 // layouts above; 0 for an unsupported (dtype, D).
-extern "C" int flash_decode_smem_bytes(int dtype, int D) {
-  if (dtype == 0 && D == 64) return (int)smem_bytes<float, 64>();
-  if (dtype == 0 && D == 128) return (int)smem_bytes<float, 128>();
-  if (dtype == 1 && D == 64) return (int)smem_bytes<bf16, 64>();
-  if (dtype == 1 && D == 128) return (int)smem_bytes<bf16, 128>();
+template <typename T>
+static int smem_of(int D) {
+  if (D == 64) return (int)smem_bytes<T, 64>();
+  if (D == 112) return (int)smem_bytes<T, 112>();
+  if (D == 128) return (int)smem_bytes<T, 128>();
+  if (D == 256) return (int)smem_bytes<T, 256>();
   return 0;
+}
+
+extern "C" int flash_decode_smem_bytes(int dtype, int D) {
+  return dtype == 0 ? smem_of<float>(D) : dtype == 1 ? smem_of<bf16>(D) : 0;
 }

@@ -19,8 +19,12 @@ of one KV head, so each K/V tile serves the whole group.  bf16 runs on the
 tensor cores (``mma.sync`` m16n8k16, K/V tiles of 64 keys in a 2-stage
 ``cp.async`` ring, P kept in registers for P·V as bf16 hi and lo halves,
 softmax and masks in f32);
-f32 runs on the CUDA cores (its 2e-5 tolerance rules out TF32).  A key
-split fills the card when few lanes have work: every block computes the
+f32 runs on the CUDA cores (its 2e-5 tolerance rules out TF32).  Head dims
+64, 112 (zamba2) and 128 hold Q in registers; at 256 (gemma2) the
+accumulator takes 128 registers a thread, Q is read from shared memory
+each k-step and one block fits an SM, so the split plan's target follows
+the body's shared memory (:func:`repro_torch.kernels.split_plan.target`).
+A key split fills the card when few lanes have work: every block computes the
 same plan from ``kv_len`` on the card (``csrc/common.cuh``, shared with
 flash-decode; :mod:`repro_torch.kernels.split_plan` mirrors it), splits write
 partial (m, l, acc) rows in f32 to scratch allocated here, and a combine
@@ -30,8 +34,9 @@ no combine runs.  One call is one count in ``launches``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Optional
 
 import torch
 
@@ -43,11 +48,8 @@ launches = 0          # kernel launches since the last reset (main-path check)
 
 _NAME = "flash_attention"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 112, 128, 256)
 ROWS = 64             # flattened (query, head-in-group) rows per block
-BLOCKS_PER_SM = 2     # what the split plan aims at: the bf16 kernel's
-                      # 87 KB of shared memory and 241 registers fit two
-                      # blocks on an SM, so this is one wave
 _fn = None
 
 
@@ -65,25 +67,12 @@ def _launcher():
     return _fn
 
 
+@functools.cache
 def smem_bytes(dtype: torch.dtype, head_dim: int) -> int:
     """Dynamic shared memory per block of the split kernel, as the CUDA
     source lays it out (builds the library)."""
     lib, _ = _launcher()
     return int(lib.flash_attention_smem_bytes(_DTYPE_CODE[dtype], head_dim))
-
-
-def max_splits(pairs: int, Sk: int, n_sm: int) -> int:
-    """The most splits the plan can give a lane at this kernel's target
-    (:func:`repro_torch.kernels.split_plan.max_splits`)."""
-    return plan.max_splits(pairs, Sk, BLOCKS_PER_SM * n_sm)
-
-
-def split_plan(pairs: int, lane_tiles: Sequence[int], n_sm: int,
-               n_cap: Optional[int] = None) -> Tuple[int, list]:
-    """The kernel's split plan, (tiles per split, splits of each lane), at
-    ``target = BLOCKS_PER_SM · n_sm``
-    (:func:`repro_torch.kernels.split_plan.split_plan`)."""
-    return plan.split_plan(pairs, lane_tiles, BLOCKS_PER_SM * n_sm, n_cap)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -95,7 +84,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     un-repeated.  With ``ptab`` (B, n_ptab) int32: k, v are page pools
     (P, page, Hkv, D), page a power of two, and Sk = n_ptab·page.
     kv_len (B,) int32 with values ≤ Sk, or None for Sk.  Contiguous, on
-    one CUDA device, one dtype (f32 or bf16), D in {64, 128}.  Returns
+    one CUDA device, one dtype (f32 or bf16), D in :data:`HEAD_DIMS`.  Returns
     (B, Sq, H, D)."""
     global launches
     dt = q.dtype
@@ -147,9 +136,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out
     n_sm = build.sm_count(dev)
     pairs = -(-Sq * (H // Hkv) // ROWS) * Hkv
-    target = BLOCKS_PER_SM * n_sm
-    grid = plan.grid_bound(pairs, B, target)
-    n_cap = plan.max_splits(pairs, Sk, target)
+    tgt = plan.target(n_sm, smem_bytes(dt, D))
+    grid = plan.grid_bound(pairs, B, tgt)
+    n_cap = plan.max_splits(pairs, Sk, tgt)
     if n_cap > 1:          # partial acc [grid][ROWS][D], then (m, l) [grid][ROWS][2]
         part = torch.empty((grid * ROWS * (D + 2),), dtype=torch.float32,
                            device=q.device)
@@ -161,7 +150,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              kv_len.data_ptr(), out.data_ptr(), *parts, B, Sq, Sk, H, Hkv, D,
              shift, n_ptab, int(causal), -1 if window is None else int(window),
              0.0 if softcap is None else float(softcap), 1.0 / math.sqrt(D),
-             target, n_cap, grid, build.stream(q))
+             tgt, n_cap, grid, build.stream(q))
     if err:
         build.check(lib, err, _NAME)
     launches += 1

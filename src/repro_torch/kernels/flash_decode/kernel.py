@@ -38,14 +38,21 @@ tile steps in one block, plus the launches.  Design:
   online softmax in f32; the block merges its warps once, at the end.
 * **f32 on the CUDA cores** under the same plan (its 2e-5 tolerance rules
   out TF32).
+* **An optional tanh logit softcap** (gemma2's 50), ``cap·tanh(s/cap)`` on
+  each scaled score before the mask, in both bodies and both modes; the
+  TPU decode kernels have none.
 
-Head dims 64 and 128 (what the served models use) and G ≤ 16; the paged
-pool's page is a power of two.  One call is one count in ``launches`` /
+Head dims 64, 112, 128 and 256 and G ≤ 16; at D 256 the Q fragments are
+read from shared memory each k-step and one block fits an SM, so the split
+plan's target follows the body's shared memory
+(:func:`repro_torch.kernels.split_plan.target`).  The paged pool's page is
+a power of two.  One call is one count in ``launches`` /
 ``contig_launches``.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -59,10 +66,8 @@ contig_launches = 0   # contiguous kernel launches since the last reset
 
 _NAME = "paged_flash_decode"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 112, 128, 256)
 MAX_GROUP = 16        # query heads per KV head: one m16 fragment
-BLOCKS_PER_SM = 2     # what the split plan aims at: one wave of two
-                      # blocks per SM
 MAX_SPLITS = 16       # most splits of a lane: the last of them merges
                       # them all, 8 at a time
 _fn = None
@@ -76,7 +81,7 @@ def _launcher():
         lib = build.load(_NAME)
         fn = lib.paged_flash_decode
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9
-                       + [ctypes.c_int] * 7 + [ctypes.c_float]
+                       + [ctypes.c_int] * 7 + [ctypes.c_float] * 2
                        + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fn = (lib, fn)
@@ -89,13 +94,14 @@ def _contig_launcher():
         lib = build.load(_NAME)
         fn = lib.flash_decode
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
-                       + [ctypes.c_int] * 5 + [ctypes.c_float]
+                       + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
                        + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _contig_fn = (lib, fn)
     return _contig_fn
 
 
+@functools.cache
 def smem_bytes(dtype: torch.dtype, head_dim: int) -> int:
     """Dynamic shared memory per block of the split kernel, as the CUDA
     source lays it out (builds the library)."""
@@ -103,15 +109,21 @@ def smem_bytes(dtype: torch.dtype, head_dim: int) -> int:
     return int(lib.flash_decode_smem_bytes(_DTYPE_CODE[dtype], head_dim))
 
 
-def target(n_sm: int) -> int:
-    """Blocks the split plan aims at on a card of ``n_sm`` SMs."""
-    return BLOCKS_PER_SM * n_sm
-
-
-def max_splits(Hkv: int, Sk: int, n_sm: int) -> int:
+def max_splits(Hkv: int, Sk: int, target: int) -> int:
     """The plan's ``n_cap``: at most MAX_SPLITS splits a lane, fewer when
-    ``Sk`` keys or the target need fewer; 1 means no lane splits."""
-    return min(plan.max_splits(Hkv, Sk, target(n_sm)), MAX_SPLITS)
+    ``Sk`` keys or ``target`` blocks need fewer; 1 means no lane splits."""
+    return min(plan.max_splits(Hkv, Sk, target), MAX_SPLITS)
+
+
+def check_dims(name: str, D: int, G: int) -> None:
+    """Raise unless the kernel is built for head dim ``D`` (one of
+    :data:`HEAD_DIMS`, the source's instantiations) and ``G`` query heads
+    per KV head fit one m16 fragment."""
+    if D not in HEAD_DIMS:
+        raise ValueError(f"{name} kernel: head dim {D} not in {HEAD_DIMS}")
+    if G > MAX_GROUP:
+        raise ValueError(f"{name} kernel: {G} query heads per KV head,"
+                         f" more than one m16 fragment ({MAX_GROUP})")
 
 
 def _checked(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -140,13 +152,7 @@ def _checked(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape[3] != D or Hkv == 0 or H % Hkv:
         raise ValueError(f"{name} kernel: inconsistent shapes q "
                          f"{tuple(q.shape)} k {tuple(k.shape)}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"{name} kernel: head dim {D} not in {HEAD_DIMS} "
-                         f"(gemma2's 256 and zamba2's 112 come with those "
-                         f"models: ROADMAP queue 2 A1/A2)")
-    if H // Hkv > MAX_GROUP:
-        raise ValueError(f"{name} kernel: {H // Hkv} query heads per KV head,"
-                         f" more than one m16 fragment ({MAX_GROUP})")
+    check_dims(name, D, H // Hkv)
     if (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16:
         raise ValueError(f"{name} kernel: q, k and v must be 16-byte aligned")
     return code, B, H, Hkv
@@ -159,10 +165,9 @@ def _scratch(q: torch.Tensor, B: int, H: int, Hkv: int, Sk: int, stream: int):
     KV head) pairs.  The kernel leaves every counter at 0, so they are
     zeroed once, when allocated, and shared by the calls on the stream."""
     D, dev = q.shape[2], q.get_device()
-    n_sm = build.sm_count(dev)
-    tgt = target(n_sm)
+    tgt = plan.target(build.sm_count(dev), smem_bytes(q.dtype, D))
     grid = plan.grid_bound(Hkv, B, tgt)
-    n_cap = max_splits(Hkv, Sk, n_sm)
+    n_cap = max_splits(Hkv, Sk, tgt)
     if n_cap <= 1:
         return tgt, n_cap, grid, None, (None, None, None)
     cnt = _counters.get((dev, stream))      # the default stream is 0 on every device
@@ -177,11 +182,12 @@ def _scratch(q: torch.Tensor, B: int, H: int, Hkv: int, Sk: int, stream: int):
 
 def paged_flash_decode(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
                        ptab: torch.Tensor, kv_len: torch.Tensor,
-                       window: Optional[int] = None) -> torch.Tensor:
+                       window: Optional[int] = None,
+                       softcap: Optional[float] = None) -> torch.Tensor:
     """q (B, H, D); kp, vp (P, page, Hkv, D), page a power of two; ptab
     (B, n_ptab) int32; kv_len (B,) int32 — all contiguous on one CUDA
-    device, q/kp/vp of one dtype (f32 or bf16), D in {64, 128}, H/Hkv ≤ 16.
-    Returns (B, H, D) in q's dtype."""
+    device, q/kp/vp of one dtype (f32 or bf16), D in :data:`HEAD_DIMS`,
+    H/Hkv ≤ 16.  Returns (B, H, D) in q's dtype."""
     global launches
     code, B, H, Hkv = _checked("paged_flash_decode", q, kp, vp, (ptab, kv_len))
     page = kp.shape[1]
@@ -202,7 +208,7 @@ def paged_flash_decode(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
     err = fn(code, q.data_ptr(), kp.data_ptr(), vp.data_ptr(), ptab.data_ptr(),
              kv_len.data_ptr(), out.data_ptr(), *parts, B, H, Hkv, q.shape[2],
              page.bit_length() - 1, n_ptab, -1 if window is None else int(window),
-             1.0 / math.sqrt(q.shape[2]), tgt, n_cap, grid, stream)
+             1.0 / math.sqrt(q.shape[2]), 0.0 if softcap is None else float(softcap), tgt, n_cap, grid, stream)
     if err:
         build.check(lib, err, _NAME)
     launches += 1
@@ -210,11 +216,11 @@ def paged_flash_decode(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 kv_len: torch.Tensor) -> torch.Tensor:
+                 kv_len: torch.Tensor, softcap: Optional[float] = None) -> torch.Tensor:
     """q (B, H, D); k, v (B, S, Hkv, D) un-repeated; kv_len (B,) int32 with
     values ≤ S — contiguous, on one CUDA device, q/k/v of one dtype (f32 or
-    bf16), D in {64, 128}, H/Hkv ≤ 16.  Returns (B, H, D) in q's dtype;
-    zeros for a lane with ``kv_len = 0``."""
+    bf16), D in :data:`HEAD_DIMS`, H/Hkv ≤ 16.  Returns (B, H, D) in q's
+    dtype; zeros for a lane with ``kv_len = 0``."""
     global contig_launches
     code, B, H, Hkv = _checked("flash_decode", q, k, v, (kv_len,))
     if k.shape[0] != B or tuple(kv_len.shape) != (B,):
@@ -230,7 +236,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib, fn = _contig_fn or _contig_launcher()
     err = fn(code, q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
              out.data_ptr(), *parts, B, H, Hkv, q.shape[2], S,
-             1.0 / math.sqrt(q.shape[2]), tgt, n_cap, grid, stream)
+             1.0 / math.sqrt(q.shape[2]), 0.0 if softcap is None else float(softcap), tgt, n_cap, grid, stream)
     if err:
         build.check(lib, err, "flash_decode")
     contig_launches += 1

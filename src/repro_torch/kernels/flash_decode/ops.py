@@ -18,25 +18,26 @@ from repro_torch.kernels.flash_decode.ref import (flash_decode_ref,
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 kv_len: torch.Tensor) -> torch.Tensor:
+                 kv_len: torch.Tensor, softcap: Optional[float] = None) -> torch.Tensor:
     """Contiguous decode: q (B, H, D); k, v (B, S, Hkv, D) un-repeated;
-    kv_len (B,) int32."""
+    kv_len (B,) int32; ``softcap``: tanh logit cap or None."""
     if q.device.type == "cuda":
-        return kernel.flash_decode(q, k, v, kv_len)
+        return kernel.flash_decode(q, k, v, kv_len, softcap)
     if q.device.type == "cpu":
-        return flash_decode_ref(q, k, v, kv_len)
+        return flash_decode_ref(q, k, v, kv_len, softcap)
     raise ValueError(f"flash_decode: unsupported device {q.device}")
 
 
 def paged_flash_decode(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
                        ptab: torch.Tensor, kv_len: torch.Tensor,
-                       window: Optional[int] = None) -> torch.Tensor:
+                       window: Optional[int] = None,
+                       softcap: Optional[float] = None) -> torch.Tensor:
     """Paged decode: q (B, H, D); kp/vp (P, page, Hkv, D); ptab (B, n_ptab)
     logical block → physical page (0 = trash); kv_len (B,) int32."""
     if q.device.type == "cuda":
-        return kernel.paged_flash_decode(q, kp, vp, ptab, kv_len, window)
+        return kernel.paged_flash_decode(q, kp, vp, ptab, kv_len, window, softcap)
     if q.device.type == "cpu":
-        return paged_flash_decode_ref(q, kp, vp, ptab, kv_len, window)
+        return paged_flash_decode_ref(q, kp, vp, ptab, kv_len, window, softcap)
     raise ValueError(f"paged_flash_decode: unsupported device {q.device}")
 
 
@@ -44,7 +45,8 @@ def paged_flash_decode_head_slice(q: torch.Tensor, kp: torch.Tensor,
                                   vp: torch.Tensor, ptab: torch.Tensor,
                                   kv_len: torch.Tensor, kv_head_offset: int,
                                   total_kv_heads: int,
-                                  window: Optional[int] = None) -> torch.Tensor:
+                                  window: Optional[int] = None,
+                                  softcap: Optional[float] = None) -> torch.Tensor:
     """Paged decode over one contiguous KV-head slice.
 
     ``q`` carries the full head set (B, H, D); ``kp``/``vp`` carry exactly
@@ -63,5 +65,5 @@ def paged_flash_decode_head_slice(q: torch.Tensor, kp: torch.Tensor,
     G = H // total_kv_heads
     q_slice = q[:, kv_head_offset * G:(kv_head_offset + hkv_slice) * G]
     return paged_flash_decode(q_slice.contiguous(), kp, vp, ptab, kv_len,
-                              window=window)
+                              window=window, softcap=softcap)
 

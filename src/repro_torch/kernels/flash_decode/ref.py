@@ -5,7 +5,10 @@ The specifications the CUDA kernels are held to, and what the ops run for
 tensors on the CPU.  They follow the kernels' contract exactly, including
 a lane with ``kv_len = 0`` (nothing to attend) writing zeros, as the TPU
 kernels' ``acc / max(l, 1e-30)`` flush does.  Unlike the JAX
-``flash_decode_ref``, the contiguous version takes K/V un-repeated.
+``flash_decode_ref``, the contiguous version takes K/V un-repeated, and
+both take an optional tanh logit softcap, ``cap·tanh(s/cap)`` on each
+scaled score before the mask, as the JAX ``sdpa`` applies it (the TPU
+decode kernels have none).
 """
 from __future__ import annotations
 
@@ -17,14 +20,23 @@ import torch
 NEG_INF = -2.0 ** 30
 
 
+def _scores(qg: torch.Tensor, k: torch.Tensor, softcap: Optional[float]) -> torch.Tensor:
+    """f32 scores (B, Hkv, G, S) of the grouped queries against k
+    (B, S, Hkv, D), scaled by 1/√D and softcapped."""
+    s = torch.einsum("bhgd,bshd->bhgs", qg, k.float()) * (1.0 / math.sqrt(k.shape[-1]))
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    return s
+
+
 def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     kv_len: torch.Tensor) -> torch.Tensor:
+                     kv_len: torch.Tensor, softcap: Optional[float] = None) -> torch.Tensor:
     """q: (B, H, D); k, v: (B, S, Hkv, D) un-repeated; kv_len: (B,).
     Returns (B, H, D) in q's dtype; all arithmetic in f32."""
     B, S, Hkv, D = k.shape
     H = q.shape[1]
     qg = q.float().reshape(B, Hkv, H // Hkv, D)
-    s = torch.einsum("bhgd,bshd->bhgs", qg, k.float()) * (1.0 / math.sqrt(D))
+    s = _scores(qg, k, softcap)
     valid = (torch.arange(S, device=q.device)[None, :]
              < kv_len.long()[:, None])[:, None, None, :]
     s = s.masked_fill(~valid, NEG_INF)
@@ -36,7 +48,8 @@ def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def paged_flash_decode_ref(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
                            ptab: torch.Tensor, kv_len: torch.Tensor,
-                           window: Optional[int] = None) -> torch.Tensor:
+                           window: Optional[int] = None,
+                           softcap: Optional[float] = None) -> torch.Tensor:
     """q: (B, H, D); kp, vp: (P, page, Hkv, D); ptab: (B, n_ptab) logical
     block → physical page; kv_len: (B,).  Returns (B, H, D) in q's dtype;
     all arithmetic in f32."""
@@ -48,7 +61,7 @@ def paged_flash_decode_ref(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
     k = kp[idx].reshape(B, S, Hkv, D).float()              # gather pages
     v = vp[idx].reshape(B, S, Hkv, D).float()
     qg = q.float().reshape(B, Hkv, G, D)
-    s = torch.einsum("bhgd,bshd->bhgs", qg, k) * (1.0 / math.sqrt(D))
+    s = _scores(qg, k, softcap)
     kpos = torch.arange(S, device=q.device)[None, :]
     kl = kv_len.long()[:, None]
     valid = kpos < kl

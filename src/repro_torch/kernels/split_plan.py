@@ -9,7 +9,8 @@ wrappers the grid bound (and so the scratch size) and gives
 
 A lane with ``kv_len`` keys has ``T`` live tiles of ``TILE`` keys
 (:func:`lane_tiles`).  With ``pairs`` (row block, KV head) pairs per lane,
-``target`` blocks and at most ``n_cap`` splits a lane, ``per = max(1,
+``target`` blocks (:func:`target`: one wave, from the kernel's shared
+memory) and at most ``n_cap`` splits a lane, ``per = max(1,
 ⌈pairs·ΣT / target⌉, ⌈max T / n_cap⌉)`` tiles per split, and lane b gives
 each pair ``⌈T_b / per⌉`` splits (:func:`split_plan`), which share its tiles
 evenly (:func:`split_tiles`).  Items are numbered lane
@@ -21,6 +22,19 @@ from __future__ import annotations
 from typing import List, Optional, Sequence, Tuple
 
 TILE = 64             # keys per tile, the plan's unit
+SMEM_PER_SM = 233_472  # H100 (sm_90): 228 KiB of shared memory an SM
+SMEM_RESERVED = 1_024  # the runtime's shared memory reserved per block
+MAX_BLOCKS = 2         # 128 threads of up to 255 registers: two blocks
+                       # fill the 64 Ki-register file
+
+
+def target(n_sm: int, smem: int) -> int:
+    """Blocks the plan aims at, one wave on a card of ``n_sm`` SMs, for a
+    kernel of ``smem`` bytes of dynamic shared memory a block: as many
+    blocks as fit an SM by shared memory, at most MAX_BLOCKS (registers),
+    at least one."""
+    fit = SMEM_PER_SM // (smem + SMEM_RESERVED)
+    return n_sm * max(1, min(MAX_BLOCKS, fit))
 
 
 def lane_keys(kv_len: int, Sq: int, Sk: int,

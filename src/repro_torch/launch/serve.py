@@ -5,11 +5,12 @@ Boots the plan-driven engine pool on a reduced config: a serving plan maps
 each replica group to continuous-batching engines (paged KV for the dense,
 vlm and moe configs — a MoE FFN follows ``REPRO_MOE_IMPL``, ``dense`` or
 ``dispatch`` — the paged latent pool for the MLA ``minicpm3-4b``, the
-contiguous SSM state cache for ``mamba2-1.3b``).  A batch of
-synthetic requests is routed across the replicas; ``--resize`` then applies
-a second plan with half the per-replica batch and reports the measured
-reconfiguration (in-flight requests drain).  Runs on the CUDA card unless
-``--device cpu``.
+contiguous SSM state cache for ``mamba2-1.3b``, the contiguous cache for
+``gemma2-9b``'s local/global pairs and ``zamba2-7b``'s hybrid groups).  A
+batch of synthetic requests is routed across the replicas; ``--resize``
+then applies a second plan with half the per-replica batch and reports the
+measured reconfiguration (in-flight requests drain).  Runs on the CUDA
+card unless ``--device cpu``.
 """
 from __future__ import annotations
 

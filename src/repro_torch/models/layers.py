@@ -213,10 +213,8 @@ def attention_fwd(p: Attention, cfg: ModelConfig, x: torch.Tensor,
         lens = lens.clamp(max=S_max)
     lens = torch.where(act, lens, 0).to(torch.int32)
     if C == 1:
-        if cfg.attn_logit_softcap is not None:
-            raise NotImplementedError("decode with an attention logit softcap "
-                                      "comes with the gemma2 slice")
-        out = fd_ops.flash_decode(q[:, 0].contiguous(), K, V, lens)[:, None]
+        out = fd_ops.flash_decode(q[:, 0].contiguous(), K, V, lens,
+                                  cfg.attn_logit_softcap)[:, None]
     else:
         out = fa_ops.flash_attention(q, K, V, causal=True,
                                      softcap=cfg.attn_logit_softcap,
@@ -254,11 +252,9 @@ def paged_attention_fwd(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     vp.view(P * page, Hkv, D).index_copy_(0, widx, v.reshape(B * C, Hkv, D))
 
     if C == 1:
-        if cfg.attn_logit_softcap is not None:
-            raise NotImplementedError("paged decode with an attention logit "
-                                      "softcap comes with the gemma2 slice")
         out = fd_ops.paged_flash_decode_head_slice(
-            q[:, 0], kp, vp, ptab, lens, 0, Hkv, window=window)[:, None]
+            q[:, 0], kp, vp, ptab, lens, 0, Hkv, window=window,
+            softcap=cfg.attn_logit_softcap)[:, None]
     else:
         out = fa_ops.flash_attention(q, kp, vp, causal=True, window=window,
                                      softcap=cfg.attn_logit_softcap,

@@ -1,12 +1,18 @@
-"""Language model, dense (GQA or MLA), MoE, vlm and SSM subsets (port of
+"""Language model: dense (GQA or MLA, or gemma2's local/global pairs),
+MoE, vlm, SSM and hybrid (zamba2) families (port of
 ``src/repro/models/lm.py``).
 
 The JAX model is a pure function over a parameter pytree with a
-``lax.scan`` over stacked layers; here it is an ``nn.Module`` (:class:`LM`,
-an ``nn.ModuleList`` of :class:`DecoderLayer` for the dense, vlm and moe
-families or :class:`MambaLayer` for the ssm family) and the scan is a
-Python loop.  A moe layer's FFN is chosen by the ``moe_impl`` flag
-(:mod:`repro_torch.models.flags`) on every call.
+``lax.scan`` over stacked layers; here it is an ``nn.Module`` (:class:`LM`)
+and the scan is a Python loop.  Its layer stacks mirror the JAX ones:
+``layers`` (an ``nn.ModuleList`` of :class:`DecoderLayer` for the dense,
+vlm and moe families or :class:`MambaLayer` for the ssm family),
+``layer_pairs`` (L/2 pairs of a local and a global :class:`DecoderLayer`,
+gemma2), or ``mamba_groups`` (G groups of ``attn_every − 1``
+:class:`MambaLayer`), ``mamba_tail`` and one ``shared_attn``
+:class:`DecoderLayer` applied after every group (zamba2).  A moe layer's
+FFN is chosen by the ``moe_impl`` flag (:mod:`repro_torch.models.flags`)
+on every call.
 Weights come from :func:`init_params` (seeded ``torch.Generator``) or from
 JAX weights through :func:`params_from_jax` (numpy in, no JAX import).
 
@@ -16,8 +22,10 @@ Two caches, as in the JAX package:
   ``kp/vp``, MLA ``ckvp``; :func:`paged_step`);
 * the contiguous per-slot cache (:func:`init_cache`: dense ``k/v/pos`` —
   a rolling ring of ``min(window, seq_len)`` rows for a sliding-window
-  config — MLA ``ckv/pos``, SSM ``conv/ssm``; :func:`step_with_cache`,
-  :func:`decode_step`, :func:`prefill_step`).
+  config — MLA ``ckv/pos``, SSM ``conv/ssm``, gemma2's ``loc_*`` ring and
+  ``glob_*`` buffer, zamba2's nested ``groups`` and ``tail`` state with
+  ``attn_*`` per group; :func:`step_with_cache`, :func:`decode_step`,
+  :func:`prefill_step`).
 
 Unlike the JAX functions, which return new caches, the steps write the
 caches in place, and only for the batch rows they are told to keep: a
@@ -34,7 +42,7 @@ leaves are accepted by dtype name.
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterator, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -48,7 +56,7 @@ from repro_torch.models.layers import (MLA, Attention, MoE, RMSNorm, SwiGLU,
                                        moe_dispatch, paged_attention_fwd,
                                        paged_mla_fwd, softcap, swiglu)
 
-Cache = Dict[str, torch.Tensor]
+Cache = Dict[str, object]       # leaves are tensors; zamba2 nests "groups"/"tail"
 
 
 # --------------------------------------------------------------------------- #
@@ -77,16 +85,27 @@ def paged_window(cfg: ModelConfig) -> Optional[int]:
     return ring_window(cfg)
 
 
+def rolling_rows(cfg: ModelConfig, seq_len: int) -> Optional[int]:
+    """Rows of the contiguous cache's rolling ring at ``seq_len`` — the
+    pure-SWA buffer or gemma2's local buffer, ``min(window, seq_len)`` —
+    or None.  Past them a prefill chunk would wrap the ring (the engine's
+    chunk rule, the JAX ``Engine._rolling_limit``)."""
+    return None if cfg.sliding_window is None else min(cfg.sliding_window, seq_len)
+
+
+def _hybrid_shape(cfg: ModelConfig) -> Tuple[int, int, int]:
+    """zamba2's stacks: (groups G, Mamba layers per group, tail layers)."""
+    G = cfg.n_layers // cfg.attn_every
+    return G, cfg.attn_every - 1, cfg.n_layers - G * cfg.attn_every
+
+
 def _check_served(cfg: ModelConfig) -> None:
-    """The port serves the dense (GQA or MLA), vlm, moe and ssm families;
-    the rest raise with the ROADMAP item (queue 1) that brings them."""
-    later = ("hybrid layer groups (ROADMAP queue 1, item 7.5)"
-             if cfg.family == "hybrid" else
-             "local/global layer pairs (ROADMAP queue 1, item 7.4)"
-             if cfg.local_global_every else
-             "encoder-decoder (ROADMAP queue 1, item 7.6)"
+    """The port serves the dense (GQA, MLA or local/global pairs), vlm, moe,
+    ssm and hybrid families; encoder-decoder raises with the ROADMAP item
+    (queue 1) that brings it."""
+    later = ("encoder-decoder (ROADMAP queue 1, item 7.6)"
              if cfg.is_encoder_decoder else
-             None if cfg.family in ("dense", "vlm", "moe", "ssm") else
+             None if cfg.family in ("dense", "vlm", "moe", "ssm", "hybrid") else
              f"family {cfg.family!r}")
     if later is not None:
         raise NotImplementedError(f"{cfg.name} ({cfg.family}): {later} is not "
@@ -163,11 +182,15 @@ class MambaLayer(nn.Module):
 
 
 class LM(nn.Module):
-    """Decoder-only LM of the dense, vlm, moe or ssm family.  Parameter names
-    mirror the JAX pytree (``layers.{l}.attn.wq`` ↔ ``layers/attn/wq[l]``,
+    """Decoder-only LM.  Parameter names mirror the JAX pytree, one index
+    per stacked axis (``layers.{l}.attn.wq`` ↔ ``layers/attn/wq[l]``,
     ``layers.{l}.attn.wkv_a`` ↔ ``layers/attn/wkv_a[l]`` for MLA,
     ``layers.{l}.ffn.router`` ↔ ``layers/ffn/router[l]``,
-    ``layers.{l}.mixer.in_proj.w`` ↔ ``layers/mixer/in_proj/w[l]``)."""
+    ``layers.{l}.mixer.in_proj.w`` ↔ ``layers/mixer/in_proj/w[l]``;
+    gemma2 ``layer_pairs.{i}.{j}.attn.wq`` ↔ ``layer_pairs/attn/wq[i, j]``,
+    j = 0 local, 1 global; zamba2 ``mamba_groups.{g}.{i}.…`` ↔
+    ``mamba_groups/…[g, i]``, ``mamba_tail.{i}.…`` ↔ ``mamba_tail/…[i]``,
+    ``shared_attn.…`` ↔ ``shared_attn/…``)."""
 
     def __init__(self, cfg: ModelConfig, device: DeviceLike = None):
         super().__init__()
@@ -183,9 +206,20 @@ class LM(nn.Module):
             self.lm_head = nn.Parameter(
                 torch.zeros((cfg.d_model, cfg.vocab_size), dtype=dtype,
                             device=device), requires_grad=False)
-        layer = MambaLayer if cfg.family == "ssm" else DecoderLayer
-        self.layers = nn.ModuleList(layer(cfg, dtype, device)
-                                    for _ in range(cfg.n_layers))
+        stack = lambda layer, n: nn.ModuleList(layer(cfg, dtype, device)
+                                               for _ in range(n))
+        if cfg.family == "hybrid":
+            G, per, tail = _hybrid_shape(cfg)
+            self.mamba_groups = nn.ModuleList(stack(MambaLayer, per) for _ in range(G))
+            if tail:
+                self.mamba_tail = stack(MambaLayer, tail)
+            self.shared_attn = DecoderLayer(cfg, dtype, device)
+        elif cfg.local_global_every == 2:
+            self.layer_pairs = nn.ModuleList(stack(DecoderLayer, 2)
+                                             for _ in range(cfg.n_layers // 2))
+        else:
+            self.layers = stack(MambaLayer if cfg.family == "ssm" else DecoderLayer,
+                                cfg.n_layers)
 
     @property
     def device(self) -> torch.device:
@@ -231,25 +265,30 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     return model
 
 
+# stacked subtrees of the JAX pytree and their stack axes
+_STACKS = {"layers": 1, "layer_pairs": 2, "mamba_groups": 2, "mamba_tail": 1,
+           "shared_attn": 0}
+
+
 def _flatten_jax(cfg: ModelConfig, np_params: Mapping) -> Dict[str, np.ndarray]:
-    """JAX pytree (stacked ``layers`` with a leading L axis) → torch names."""
+    """JAX pytree (stacks with their leading axes, :data:`_STACKS`) → torch
+    names, one index per stacked axis."""
     flat: Dict[str, np.ndarray] = {"embed": np_params["embed"],
                                    "final_norm.scale": np_params["final_norm"]["scale"]}
     if "lm_head" in np_params:
         flat["lm_head"] = np_params["lm_head"]
 
-    def walk(prefix: str, node) -> None:
+    def walk(top: str, depth: int, prefix: str, node) -> None:
         if isinstance(node, Mapping):
             for k, v in node.items():
-                walk(f"{prefix}.{k}" if prefix else k, v)
+                walk(top, depth, f"{prefix}.{k}" if prefix else k, v)
             return
         arr = np.asarray(node)
-        if arr.shape[0] != cfg.n_layers:
-            raise ValueError(f"layers/{prefix}: leading axis {arr.shape[0]} "
-                             f"!= n_layers {cfg.n_layers}")
-        for l in range(cfg.n_layers):
-            flat[f"layers.{l}.{prefix}"] = arr[l]
-    walk("", np_params["layers"])
+        for idx in np.ndindex(*arr.shape[:depth]):
+            flat[".".join([top, *map(str, idx), prefix])] = arr[idx]
+    for top, depth in _STACKS.items():
+        if top in np_params:
+            walk(top, depth, "", np_params[top])
     return flat
 
 
@@ -290,14 +329,23 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def cache_from_numpy(cache: Mapping, device: DeviceLike = None) -> Cache:
-    """A JAX cache given as numpy arrays → port tensors, leaf by leaf: the
-    contiguous ``k/v/pos``, ``ckv/pos`` or ``conv/ssm``, or the paged
-    ``kp/vp`` or ``ckvp``."""
+    """A JAX cache given as numpy arrays → port tensors, leaf by leaf (any
+    of :func:`init_cache`'s or :func:`init_paged_cache`'s layouts, nested
+    dicts included)."""
     device = resolve_device(device)
-    return {k: _to_torch(v).to(device) for k, v in cache.items()}
+    return _map_leaves(lambda path, leaf: _to_torch(leaf).to(device), cache)
 
 
 paged_cache_from_numpy = cache_from_numpy
+
+
+def _embed(model: LM, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """Token embeddings; gemma2 scales them by √d_model rounded to the
+    working dtype first, as the reference does."""
+    x = model.embed[tokens]
+    if cfg.local_global_every:
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
+    return x
 
 
 def _logits(model: LM, cfg: ModelConfig, x: torch.Tensor,
@@ -317,16 +365,27 @@ def forward(model: LM, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     """Full-sequence forward from position 0 without a cache (the JAX
     ``forward``, served families). tokens (B, S) → logits (B, S, V)."""
     B, S = tokens.shape
-    x = model.embed[tokens]
+    x = _embed(model, cfg, tokens)
+    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    attend = lambda window: lambda a, h: (
+        mla_fwd(a, cfg, h, positions) if cfg.mla is not None else
+        attention_fwd(a, cfg, h, positions, window))
     if cfg.family == "ssm":
         for layer in model.layers:
             x, _ = layer(x)
+    elif cfg.family == "hybrid":
+        for group in model.mamba_groups:
+            for layer in group:
+                x, _ = layer(x)
+            x = model.shared_attn(x, attend(None))
+        for layer in getattr(model, "mamba_tail", ()):
+            x, _ = layer(x)
+    elif cfg.local_global_every == 2:
+        for local, glob in model.layer_pairs:
+            x = glob(local(x, attend(cfg.sliding_window)), attend(None))
     else:
-        positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
         for layer in model.layers:
-            x = layer(x, lambda a, h: (
-                mla_fwd(a, cfg, h, positions) if cfg.mla is not None else
-                attention_fwd(a, cfg, h, positions, cfg.sliding_window)))
+            x = layer(x, attend(cfg.sliding_window))
     return _logits(model, cfg, x, last_only=False)
 
 
@@ -343,33 +402,53 @@ def init_cache(cfg: ModelConfig, B: int, seq_len: int,
                dtype: Optional[torch.dtype] = None,
                device: DeviceLike = None) -> Cache:
     """Zero-filled contiguous cache for ``B`` slots of up to ``seq_len``
-    positions: dense ``{"k", "v"}`` (L, B, S, Hkv, D) and ``"pos"``
-    (L, B, S) int32 filled with -1, ``S = cache_seq_len(cfg, seq_len)``
-    (a ring for a sliding-window config); MLA ``{"ckv"}`` (L, B, S,
-    r + d_rope) and ``"pos"``; ssm ``{"conv"}`` (L, B, d_conv-1, conv_dim)
-    and ``{"ssm"}`` (L, B, h, p, n)."""
+    positions, with the JAX keys: dense ``{"k", "v"}`` (L, B, S, Hkv, D)
+    and ``"pos"`` (L, B, S) int32 filled with -1, ``S = cache_seq_len(cfg,
+    seq_len)`` (a ring for a sliding-window config); MLA ``{"ckv"}``
+    (L, B, S, r + d_rope) and ``"pos"``; ssm ``{"conv"}``
+    (L, B, d_conv-1, conv_dim) and ``{"ssm"}`` (L, B, h, p, n); gemma2
+    ``loc_{k,v,pos}`` (L/2, B, min(window, seq_len), …) and
+    ``glob_{k,v,pos}`` (L/2, B, seq_len, …); zamba2 ``groups`` =
+    ``{conv, ssm}`` (G, per_group, B, …), ``attn_{k,v,pos}`` (G, B,
+    seq_len, …) and ``tail`` = ``{conv, ssm}`` (trailing, B, …)."""
     _check_served(cfg)
     device = resolve_device(device)
     dtype = working_dtype(cfg) if dtype is None else dtype
+
+    def kv(n: int, S: int, prefix: str = "") -> Cache:
+        shape = (n, B, S, cfg.n_kv_heads, cfg.d_head)
+        return {f"{prefix}k": torch.zeros(shape, dtype=dtype, device=device),
+                f"{prefix}v": torch.zeros(shape, dtype=dtype, device=device),
+                f"{prefix}pos": torch.full((n, B, S), -1, dtype=torch.int32,
+                                           device=device)}
+
+    def ssm(*stack: int) -> Cache:
+        s = cfg.ssm
+        conv_dim = s.d_inner(cfg.d_model) + 2 * s.n_groups * s.d_state
+        return {"conv": torch.zeros((*stack, B, s.d_conv - 1, conv_dim), dtype=dtype,
+                                    device=device),
+                "ssm": torch.zeros((*stack, B, s.n_heads(cfg.d_model), s.head_dim,
+                                    s.d_state), dtype=dtype, device=device)}
+
     L = cfg.n_layers
     if cfg.family == "ssm":
-        s = cfg.ssm
-        di = s.d_inner(cfg.d_model)
-        conv_dim = di + 2 * s.n_groups * s.d_state
-        nh = s.n_heads(cfg.d_model)
-        return {"conv": torch.zeros((L, B, s.d_conv - 1, conv_dim), dtype=dtype,
-                                    device=device),
-                "ssm": torch.zeros((L, B, nh, s.head_dim, s.d_state), dtype=dtype,
-                                   device=device)}
+        return ssm(L)
+    if cfg.family == "hybrid":
+        G, per, tail = _hybrid_shape(cfg)
+        c = {"groups": ssm(G, per), **kv(G, seq_len, "attn_")}
+        if tail:
+            c["tail"] = ssm(tail)
+        return c
+    if cfg.local_global_every == 2:
+        return {**kv(L // 2, rolling_rows(cfg, seq_len), "loc_"),
+                **kv(L // 2, seq_len, "glob_")}
     S = cache_seq_len(cfg, seq_len)
-    pos = torch.full((L, B, S), -1, dtype=torch.int32, device=device)
     if cfg.mla is not None:
         m = cfg.mla
         return {"ckv": torch.zeros((L, B, S, m.kv_lora_rank + m.qk_rope_head_dim),
-                                   dtype=dtype, device=device), "pos": pos}
-    shape = (L, B, S, cfg.n_kv_heads, cfg.d_head)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device), "pos": pos}
+                                   dtype=dtype, device=device),
+                "pos": torch.full((L, B, S), -1, dtype=torch.int32, device=device)}
+    return kv(L, S)
 
 
 def step_with_cache(model: LM, cfg: ModelConfig, cache: Cache,
@@ -391,22 +470,27 @@ def step_with_cache(model: LM, cfg: ModelConfig, cache: Cache,
     (n, C, V) in f32, or (n, 1, V) when ``last_only``, and the cache.
     """
     n, C = tokens.shape
-    lo, hi = (0, next(iter(cache.values())).shape[1]) if rows is None else rows
+    lo, hi = (0, _batch_size(cache)) if rows is None else rows
     if hi - lo != n:
         raise ValueError(f"rows {lo}:{hi} do not match {n} token rows")
     dev = tokens.device
     pos2 = pos2.long()
-    x = model.embed[tokens]
+    x = _embed(model, cfg, tokens)
+
+    def mamba(layer, x, conv, ssm_st):
+        """One Mamba layer from this slot range's state, kept for ``write``."""
+        x, (c2, s2) = layer(x, (conv, ssm_st))
+        if write is None:
+            conv.copy_(c2)
+            ssm_st.copy_(s2)
+        else:
+            conv.index_copy_(0, write, c2.index_select(0, write).to(conv.dtype))
+            ssm_st.index_copy_(0, write, s2.index_select(0, write).to(ssm_st.dtype))
+        return x
+
     if cfg.family == "ssm":
         for l, layer in enumerate(model.layers):
-            conv, ssm_st = cache["conv"][l, lo:hi], cache["ssm"][l, lo:hi]
-            x, (c2, s2) = layer(x, (conv, ssm_st))
-            if write is None:
-                conv.copy_(c2)
-                ssm_st.copy_(s2)
-            else:
-                conv.index_copy_(0, write, c2.index_select(0, write).to(conv.dtype))
-                ssm_st.index_copy_(0, write, s2.index_select(0, write).to(ssm_st.dtype))
+            x = mamba(layer, x, cache["conv"][l, lo:hi], cache["ssm"][l, lo:hi])
         return _logits(model, cfg, x, last_only), cache
     active = torch.ones(n, dtype=torch.bool, device=dev)
     if write is not None:
@@ -417,17 +501,46 @@ def step_with_cache(model: LM, cfg: ModelConfig, cache: Cache,
             x = layer(x, lambda a, h: mla_fwd(a, cfg, h, pos2, kv_cache=kv,
                                               active=active))
         return _logits(model, cfg, x, last_only), cache
-    window = ring_window(cfg)
-    pos = cache["pos"][:, lo:hi]                           # (L, n, S)
-    r = torch.arange(n, device=dev)[:, None].expand(n, C)
-    slots = pos2 % pos.shape[2] if window is not None else pos2
-    pos[:, r, slots] = torch.where(active[:, None], pos2.to(pos.dtype),
-                                   pos[:, r, slots])
-    for l, layer in enumerate(model.layers):
-        kv = (cache["k"][l, lo:hi], cache["v"][l, lo:hi])
-        x = layer(x, lambda a, h: attention_fwd(a, cfg, h, pos2, window,
-                                                kv_cache=kv, active=active))
+
+    def attend(layer, x, prefix: str, l: int, window: Optional[int]):
+        """``layer`` against buffer ``l`` of the ``{prefix}k/v`` stack."""
+        kv = (cache[f"{prefix}k"][l, lo:hi], cache[f"{prefix}v"][l, lo:hi])
+        return layer(x, lambda a, h: attention_fwd(a, cfg, h, pos2, window,
+                                                   kv_cache=kv, active=active))
+
+    if cfg.family == "hybrid":
+        _write_pos(cache["attn_pos"][:, lo:hi], pos2, active, ring=False)
+        groups = cache["groups"]
+        for g, group in enumerate(model.mamba_groups):
+            for i, layer in enumerate(group):
+                x = mamba(layer, x, groups["conv"][g, i, lo:hi], groups["ssm"][g, i, lo:hi])
+            x = attend(model.shared_attn, x, "attn_", g, None)
+        for i, layer in enumerate(getattr(model, "mamba_tail", ())):
+            x = mamba(layer, x, cache["tail"]["conv"][i, lo:hi],
+                      cache["tail"]["ssm"][i, lo:hi])
+    elif cfg.local_global_every == 2:
+        _write_pos(cache["loc_pos"][:, lo:hi], pos2, active, ring=True)
+        _write_pos(cache["glob_pos"][:, lo:hi], pos2, active, ring=False)
+        for i, (local, glob) in enumerate(model.layer_pairs):
+            x = attend(local, x, "loc_", i, cfg.sliding_window)
+            x = attend(glob, x, "glob_", i, None)
+    else:
+        window = ring_window(cfg)
+        _write_pos(cache["pos"][:, lo:hi], pos2, active, ring=window is not None)
+        for l, layer in enumerate(model.layers):
+            x = attend(layer, x, "", l, window)
     return _logits(model, cfg, x, last_only), cache
+
+
+def _write_pos(pos: torch.Tensor, pos2: torch.Tensor, active: torch.Tensor,
+               ring: bool) -> None:
+    """Record this chunk's positions (n, C) in every layer's position
+    buffer ``pos`` (N, n, S) for the ``active`` rows: at ``pos2 % S`` on a
+    ring, else at ``pos2``."""
+    n, C = pos2.shape
+    r = torch.arange(n, device=pos2.device)[:, None].expand(n, C)
+    slots = pos2 % pos.shape[2] if ring else pos2
+    pos[:, r, slots] = torch.where(active[:, None], pos2.to(pos.dtype), pos[:, r, slots])
 
 
 def decode_step(model: LM, cfg: ModelConfig, cache: Cache,
@@ -447,8 +560,48 @@ def prefill_step(model: LM, cfg: ModelConfig, cache: Cache,
     return step_with_cache(model, cfg, cache, tokens, positions)
 
 
-def _leaf_init(name: str) -> int:
-    return -1 if name.endswith("pos") else 0
+# --------------------------------------------------------------------------- #
+# cache leaves (zamba2 nests "groups" and "tail")
+# --------------------------------------------------------------------------- #
+def _leaves(cache: Mapping, path: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], object]]:
+    """(key path, leaf) of every leaf of a (nested) cache dict."""
+    for k, v in cache.items():
+        if isinstance(v, Mapping):
+            yield from _leaves(v, path + (k,))
+        else:
+            yield path + (k,), v
+
+
+def _map_leaves(fn: Callable, cache: Mapping, *others: Mapping,
+                path: Tuple[str, ...] = ()) -> Dict[str, object]:
+    """The same nesting with ``fn(path, leaf, *other leaves)`` at each leaf."""
+    return {k: (_map_leaves(fn, v, *(o[k] for o in others), path=path + (k,))
+                if isinstance(v, Mapping) else fn(path + (k,), v, *(o[k] for o in others)))
+            for k, v in cache.items()}
+
+
+def _stack_depth(path: Tuple[str, ...]) -> int:
+    """Stack axes before the batch axis: 2 for zamba2's group state
+    (G, per_group), 1 everywhere else (the JAX ``_stack_depth``)."""
+    return 2 if path[0] == "groups" else 1
+
+
+def _slot_index(path: Tuple[str, ...], slot) -> tuple:
+    return (slice(None),) * _stack_depth(path) + (slot,)
+
+
+def _batch_size(cache: Mapping) -> int:
+    path, leaf = next(_leaves(cache))
+    return leaf.shape[_stack_depth(path)]
+
+
+def _leaf_init(path: Tuple[str, ...]) -> int:
+    return -1 if path[-1].endswith("pos") else 0
+
+
+def _slot_mask(path: Tuple[str, ...], leaf: torch.Tensor, flags: torch.Tensor) -> torch.Tensor:
+    d = _stack_depth(path)
+    return flags.bool().reshape((1,) * d + (-1,) + (1,) * (leaf.dim() - d - 1))
 
 
 def reset_slots(cfg: ModelConfig, cache: Cache, reset: torch.Tensor) -> Cache:
@@ -456,29 +609,23 @@ def reset_slots(cfg: ModelConfig, cache: Cache, reset: torch.Tensor) -> Cache:
     go back to empty — position buffers to -1, KV and recurrent state to
     zero.  A reused slot must be wiped before its first chunk: recurrent
     state is continued unconditionally."""
-    out = {}
-    for k, leaf in cache.items():
-        m = reset.bool().reshape((1, -1) + (1,) * (leaf.dim() - 2))
-        out[k] = torch.where(m, torch.full_like(leaf, _leaf_init(k)), leaf)
-    return out
+    return _map_leaves(lambda p, leaf: torch.where(
+        _slot_mask(p, leaf, reset), torch.full_like(leaf, _leaf_init(p)), leaf), cache)
 
 
 def mask_cache_update(cfg: ModelConfig, old_cache: Cache, new_cache: Cache,
                       active: torch.Tensor) -> Cache:
     """JAX semantics, new tensors: keep updates only for the slots flagged
     in ``active`` (B,) bool; inactive slots keep the old cache."""
-    out = {}
-    for k, old in old_cache.items():
-        m = active.bool().reshape((1, -1) + (1,) * (old.dim() - 2))
-        out[k] = torch.where(m, new_cache[k], old)
-    return out
+    return _map_leaves(lambda p, old, new: torch.where(_slot_mask(p, old, active), new, old),
+                       old_cache, new_cache)
 
 
 def wipe_slots_(cache: Cache, slots: Sequence[int]) -> Cache:
     """:func:`reset_slots` in place for the listed slots."""
-    for k, leaf in cache.items():
+    for path, leaf in _leaves(cache):
         for s in slots:
-            leaf[:, s].fill_(_leaf_init(k))
+            leaf[_slot_index(path, s)].fill_(_leaf_init(path))
     return cache
 
 
@@ -536,10 +683,11 @@ def _require(cond: bool, msg: str) -> None:
         raise SlotMigrationError(msg)
 
 
-def extract_slot(cfg: ModelConfig, cache: Cache, slot: int) -> Dict[str, np.ndarray]:
-    """One batch slot's KV/SSM state as a host copy: the cache dict with
-    the batch axis removed, positions absolute (the JAX wire format)."""
-    return {k: _to_numpy(leaf[:, slot]) for k, leaf in cache.items()}
+def extract_slot(cfg: ModelConfig, cache: Cache, slot: int) -> Dict[str, object]:
+    """One batch slot's KV/SSM state as a host copy: the (nested) cache
+    dict with the batch axis removed, positions absolute (the JAX wire
+    format)."""
+    return _map_leaves(lambda p, leaf: _to_numpy(leaf[_slot_index(p, slot)]), cache)
 
 
 def _install_copy(dst: torch.Tensor, src) -> torch.Tensor:
@@ -552,9 +700,10 @@ def _install_copy(dst: torch.Tensor, src) -> torch.Tensor:
 
 
 def _install_attn(dst_leaves, src_leaves, dst_pos: torch.Tensor, src_pos,
-                  slot: int, window: Optional[int], position: int) -> None:
-    """Scatter one slot's attention entries into the target buffers by
-    absolute position, overwriting the whole slot.
+                  slot: int, window: Optional[int], position: int) -> Callable[[], None]:
+    """Check one slot's attention entries against the target buffers;
+    returns the write that scatters them by absolute position, overwriting
+    the whole slot.
 
     dst leaves: (N, B, S_dst, ...) sharing ``dst_pos`` (N, B, S_dst); src
     leaves: (N, S_src, ...) host arrays sharing ``src_pos`` (N, S_src).
@@ -564,8 +713,9 @@ def _install_attn(dst_leaves, src_leaves, dst_pos: torch.Tensor, src_pos,
     rule).  Beyond the JAX checks, every position the next decode reads —
     ``[0, position)``, or the ring's ``[position - S_dst + 1, position)`` —
     must be in the state: the port's kernels read a slot's first
-    ``kv_len`` rows instead of masking by ``pos``.  Everything is checked
-    before anything is written.
+    ``kv_len`` rows instead of masking by ``pos``.  Nothing is written
+    before the returned write runs, so a caller checks every part of a
+    state before it writes any.
     """
     src_pos = np.asarray(src_pos)
     N, S_src = src_pos.shape
@@ -601,17 +751,20 @@ def _install_attn(dst_leaves, src_leaves, dst_pos: torch.Tensor, src_pos,
                  and src.shape[0] == N and src.shape[1] == S_src,
                  f"attention state shape {tuple(src.shape)} incompatible "
                  f"with cache {tuple(dst.shape)}")
-    dev = dst_pos.device
-    ni, si, di = (torch.from_numpy(a.astype(np.int64)).to(dev)
-                  for a in (n_idx, s_idx, d_idx))
-    for dst, src in zip(dst_leaves, src_leaves):
-        buf = torch.zeros((N, S_dst) + tuple(dst.shape[3:]), dtype=dst.dtype,
-                          device=dev)
-        buf[ni, di] = _to_torch(src).to(device=dev, dtype=dst.dtype)[ni, si]
-        dst[:, slot].copy_(buf)
-    posbuf = torch.full((N, S_dst), -1, dtype=torch.int32, device=dev)
-    posbuf[ni, di] = torch.from_numpy(src_pos.astype(np.int32)).to(dev)[ni, si]
-    dst_pos[:, slot].copy_(posbuf)
+
+    def write() -> None:
+        dev = dst_pos.device
+        ni, si, di = (torch.from_numpy(a.astype(np.int64)).to(dev)
+                      for a in (n_idx, s_idx, d_idx))
+        for dst, src in zip(dst_leaves, src_leaves):
+            buf = torch.zeros((N, S_dst) + tuple(dst.shape[3:]), dtype=dst.dtype,
+                              device=dev)
+            buf[ni, di] = _to_torch(src).to(device=dev, dtype=dst.dtype)[ni, si]
+            dst[:, slot].copy_(buf)
+        posbuf = torch.full((N, S_dst), -1, dtype=torch.int32, device=dev)
+        posbuf[ni, di] = torch.from_numpy(src_pos.astype(np.int32)).to(dev)[ni, si]
+        dst_pos[:, slot].copy_(posbuf)
+    return write
 
 
 def install_slot(cfg: ModelConfig, cache: Cache, slot: int, state: Mapping,
@@ -621,24 +774,44 @@ def install_slot(cfg: ModelConfig, cache: Cache, slot: int, state: Mapping,
 
     ``position`` is the request's next decode position (its cache holds
     positions < ``position``).  The whole slot is overwritten, so a previous
-    occupant can never leak through.  A sliding-window config's ring takes
-    the state rotated by position.  Raises :class:`SlotMigrationError`
-    (cache untouched) when the state cannot be represented in the target
-    cache; the caller then falls back to recompute-from-continuation.
+    occupant can never leak through.  A sliding-window ring (the pure-SWA
+    buffer, gemma2's local buffer) takes the state rotated by position;
+    gemma2's global buffer and zamba2's per-group buffers index by it.
+    Raises :class:`SlotMigrationError` (cache untouched) when the state
+    cannot be represented in the target cache; the caller then falls back
+    to recompute-from-continuation.
     """
     try:
+        writes = []
+
+        def attn(prefix: str, keys, window: Optional[int]) -> None:
+            writes.append(_install_attn(
+                [cache[prefix + k] for k in keys], [state[prefix + k] for k in keys],
+                cache[prefix + "pos"], state[prefix + "pos"], slot, window, position))
+
+        def recurrent(dst: Cache, src: Mapping, stack: int) -> None:
+            idx = (slice(None),) * stack + (slot,)
+            for k in ("conv", "ssm"):
+                t = _install_copy(dst[k][idx], src[k])
+                writes.append(lambda k=k, t=t: dst[k][idx].copy_(t))
+
         if cfg.family == "ssm":
-            conv = _install_copy(cache["conv"][:, slot], state["conv"])
-            ssm_st = _install_copy(cache["ssm"][:, slot], state["ssm"])
-            cache["conv"][:, slot].copy_(conv)
-            cache["ssm"][:, slot].copy_(ssm_st)
-            return cache
-        if cfg.mla is not None:
-            _install_attn([cache["ckv"]], [state["ckv"]], cache["pos"],
-                          state["pos"], slot, None, position)
-            return cache
-        _install_attn([cache["k"], cache["v"]], [state["k"], state["v"]],
-                      cache["pos"], state["pos"], slot, ring_window(cfg), position)
+            recurrent(cache, state, 1)
+        elif cfg.family == "hybrid":
+            recurrent(cache["groups"], state["groups"], 2)
+            if "tail" in cache:
+                _require("tail" in state, "state lacks the mamba tail stack")
+                recurrent(cache["tail"], state["tail"], 1)
+            attn("attn_", ("k", "v"), None)
+        elif cfg.mla is not None:
+            attn("", ("ckv",), None)
+        elif cfg.local_global_every == 2:
+            attn("loc_", ("k", "v"), cfg.sliding_window)
+            attn("glob_", ("k", "v"), None)
+        else:
+            attn("", ("k", "v"), ring_window(cfg))
+        for write in writes:
+            write()
         return cache
     except SlotMigrationError:
         raise

@@ -299,14 +299,14 @@ class Engine(RequestSchedulingMixin):
     def _allowed_chunk_sizes(self, cap: int) -> Tuple[int, ...]:
         """Power-of-two chunk sizes of the contiguous path (the JAX rule): a
         chunk longer than the SSD scan's chunk must be a multiple of it, and
-        a rolling sliding-window ring's length must be a multiple of every
-        chunk.  A multi-token write past the ring would evict rows that the
-        chunk's own earlier queries still need, so chunking is only sound
-        while the whole prefix fits the ring: ``_rolling_limit`` bounds
-        where chunks may be used (see :meth:`_prefill_chunks`)."""
+        a rolling sliding-window ring's length (the pure-SWA buffer or
+        gemma2's local buffer) must be a multiple of every chunk.  A
+        multi-token write past the ring would evict rows that the chunk's
+        own earlier queries still need, so chunking is only sound while the
+        whole prefix fits the ring: ``_rolling_limit`` bounds where chunks
+        may be used (see :meth:`_prefill_chunks`)."""
         ssd_chunk = self.cfg.ssm.chunk_size if self.cfg.ssm is not None else 0
-        ring = (lm.cache_seq_len(self.cfg, self.max_seq_len)
-                if lm.ring_window(self.cfg) is not None else None)
+        ring = lm.rolling_rows(self.cfg, self.max_seq_len)
         self._rolling_limit = ring
         return tuple(c for c in _CHUNK_CANDIDATES
                      if c <= max(cap, 1)

@@ -3,6 +3,7 @@ its entry points never fall back to the CPU when no card is present, and
 its kernel modules import on a host without ``triton`` or ``nvcc``."""
 import ast
 import dataclasses
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -139,18 +140,19 @@ def test_ops_route_only_cpu_and_cuda():
 
 
 def test_unported_paths_raise_not_implemented():
+    """Encoder-decoder still raises, naming the ROADMAP item that brings
+    it; gemma2's local/global pairs and zamba2's hybrid groups are served."""
     cfg = get_config("qwen2-1.5b").reduced()
     model = lm.init_params(cfg, device="cpu")
-    pairs = dataclasses.replace(cfg, sliding_window=16, local_global_every=2)
-    with pytest.raises(NotImplementedError, match="local/global"):
-        lm.init_cache(pairs, 1, 32, device="cpu")
+    for arch in ("gemma2-9b", "zamba2-7b"):
+        served = get_config(arch).reduced()
+        lm.init_cache(served, 1, 32, device="cpu")
+        lm.init_params(served, device="cpu")
     encdec = dataclasses.replace(cfg, is_encoder_decoder=True, n_encoder_layers=2)
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
+    with pytest.raises(NotImplementedError, match=r"encoder-decoder \(ROADMAP queue 1, item 7\.6\)"):
         lm.init_params(encdec, device="cpu")
-    hybrid = dataclasses.replace(get_config("mamba2-1.3b").reduced(),
-                                 family="hybrid", attn_every=2)
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        lm.init_params(hybrid, device="cpu")
+    with pytest.raises(NotImplementedError, match="encoder-decoder"):
+        lm.init_cache(encdec, 1, 32, device="cpu")
     eng = Engine(cfg, model, n_slots=1, max_seq_len=32, device="cpu")
     backend = TorchBackend(cfg, model, device="cpu")
     with pytest.raises(NotImplementedError, match="faults"):
@@ -193,6 +195,11 @@ DECODE_PLANS = {
 }
 
 
+# dynamic shared memory per block of the bf16 bodies at D 128
+# (csrc TcLayout<128>::kBytes, as the card's build reports them)
+FA_D128_SMEM, DECODE_D128_SMEM = 87_040, 73_984
+
+
 @pytest.mark.parametrize("case", sorted(DECODE_PLANS))
 def test_decode_split_plan_fills_the_card(case):
     """The decode kernels' split plan (the card computes it from kv_len;
@@ -202,9 +209,9 @@ def test_decode_split_plan_fills_the_card(case):
     grid."""
     kv_len, hkv, window, want_per = DECODE_PLANS[case]
     Sk, T = 2048, split_plan.TILE
-    target = fd_kernel.target(132)
+    target = split_plan.target(132, DECODE_D128_SMEM)
     tiles = [split_plan.lane_tiles(n, 1, Sk, window) for n in kv_len]
-    n_cap = fd_kernel.max_splits(hkv, Sk, 132)
+    n_cap = fd_kernel.max_splits(hkv, Sk, target)
     per, splits = split_plan.split_plan(hkv, tiles, target, n_cap)
     assert per == want_per and max(splits) <= n_cap == fd_kernel.MAX_SPLITS
     for n, t, kvl in zip(splits, tiles, kv_len):
@@ -222,26 +229,81 @@ def test_decode_split_plan_fills_the_card(case):
     assert hkv * sum(splits) <= items <= split_plan.grid_bound(hkv, len(kv_len), target)
 
 
+@pytest.mark.parametrize("smem,blocks", [
+    (46_080, 2),            # flash attention D 64: four fit, registers allow two
+    (76_800, 2),            # flash attention D 112
+    (FA_D128_SMEM, 2),
+    (168_960, 1),           # flash attention D 256
+    (65_280, 2),            # decode D 112
+    (DECODE_D128_SMEM, 2),
+    (143_616, 1),           # decode D 256
+    (232_448, 1),           # the most one block may take
+])
+def test_split_plan_target_follows_shared_memory(smem, blocks):
+    """The plan aims at one wave: as many blocks as fit an SM by shared
+    memory (two up to D 128, one at D 256), at most two (registers).  A
+    prefill chunk of one lane (16 live tiles, 16 pairs) splits into 16
+    single-tile splits at 264 blocks and 8 two-tile splits at 132, and a
+    decode of spread lengths keeps within the host's grid."""
+    want = 132 * blocks
+    assert split_plan.target(132, smem) == want
+    tiles = [fa_kernel.lane_tiles(n, 64, 2048, None) for n in [1024] + [0] * 7]
+    per, splits = split_plan.split_plan(16, tiles, want)
+    assert split_plan.max_splits(16, 2048, want) == min(32, -(-want // 16))
+    assert per == -(-16 * 16 // want) and splits == [16 // per] + [0] * 7
+    kv = [0, 1, 17, 300, 777, 1024, 1500, 2048]
+    tiles = [split_plan.lane_tiles(n, 1, 2048, None) for n in kv]
+    n_cap = fd_kernel.max_splits(8, 2048, want)
+    per, splits = split_plan.split_plan(8, tiles, want, n_cap)
+    assert per == -(-8 * sum(tiles) // want) and max(splits) <= n_cap
+    assert all(s_ == -(-t // per) for s_, t in zip(splits, tiles))
+    assert split_plan.work_items(8, splits) <= split_plan.grid_bound(8, len(kv), want)
+
+
+def test_attention_launchers_take_the_sources_head_dims():
+    """The wrappers' head dims are exactly the instantiations that the
+    sources dispatch to and size: 64, 112 (zamba2), 128 and 256 (gemma2);
+    the decode launchers refuse any other D and a group of more than 16
+    query heads before anything is built."""
+    assert fa_kernel.HEAD_DIMS == fd_kernel.HEAD_DIMS == (64, 112, 128, 256)
+    for name in ("flash_attention", "paged_flash_decode"):
+        src = (build.CSRC / f"{name}.cu").read_text()
+        for fn in ("dispatch_d", "smem_of"):
+            body = src[src.index(f" {fn}("):]
+            body = body[:body.index("\n}\n")]
+            dims = tuple(int(d) for d in re.findall(r"D == (\d+)", body))
+            assert dims == fa_kernel.HEAD_DIMS, (name, fn, dims)
+    for D in fd_kernel.HEAD_DIMS:
+        fd_kernel.check_dims("decode", D, 16)
+    for D in (16, 96, 100, 120, 192, 512):
+        with pytest.raises(ValueError, match="head dim"):
+            fd_kernel.check_dims("decode", D, 2)
+    with pytest.raises(ValueError, match="m16 fragment"):
+        fd_kernel.check_dims("decode", 256, 17)
+    assert fd_kernel._fn is None and fd_kernel._contig_fn is None
+
+
 def test_flash_attention_split_plan_fills_the_card():
     # a serving prefill chunk: one lane of 16 live tiles (kv_len 1024, Sq 64),
     # 12 (row block, KV head) pairs with work, spread over 132 SMs
+    target = split_plan.target(132, FA_D128_SMEM)
     tiles = [fa_kernel.lane_tiles(n, 64, 2048, None) for n in [1024] + [0] * 7]
     assert tiles == [16] + [0] * 7
-    per, splits = fa_kernel.split_plan(12, tiles, 132)
+    per, splits = split_plan.split_plan(12, tiles, target)
     assert per == 1 and splits == [16] + [0] * 7
     assert 12 * sum(splits) >= 132
-    assert fa_kernel.max_splits(12, 2048, 132) == 22 >= max(splits)
+    assert split_plan.max_splits(12, 2048, target) == 22 >= max(splits)
     # a grid that already fills the card gets one split and no combine
-    assert fa_kernel.max_splits(600, 2048, 132) == 1
-    assert fa_kernel.split_plan(600, [32] * 8, 132)[1] == [1] * 8
-    assert fa_kernel.split_plan(96, [8] * 8, 132, n_cap=1)[1] == [1] * 8
+    assert split_plan.max_splits(600, 2048, target) == 1
+    assert split_plan.split_plan(600, [32] * 8, target)[1] == [1] * 8
+    assert split_plan.split_plan(96, [8] * 8, target, n_cap=1)[1] == [1] * 8
     # never more splits than live key tiles, and none for an idle lane
-    assert fa_kernel.split_plan(12, [3, 0], 132) == (1, [3, 0])
+    assert split_plan.split_plan(12, [3, 0], target) == (1, [3, 0])
     for pairs in (1, 12, 32, 96):
         lanes = [0, 1, 5, 16, 32]
-        per, splits = fa_kernel.split_plan(pairs, lanes, 132)
+        per, splits = split_plan.split_plan(pairs, lanes, target)
         assert all(n <= t for n, t in zip(splits, lanes))
-        assert all(n <= fa_kernel.max_splits(pairs, 2048, 132) for n in splits)
+        assert all(n <= split_plan.max_splits(pairs, 2048, target) for n in splits)
     # the live range: a window drops the tiles below the first query's reach
     assert fa_kernel.lane_tiles(1024, 64, 2048, 256) == 16 - 705 // 64
     assert fa_kernel.lane_tiles(3000, 64, 2048, None) == 32

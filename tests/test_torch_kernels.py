@@ -201,10 +201,10 @@ def _decode_by_plan(q, kp, vp, ptab, kv_len, window, n_sm):
     P, page, Hkv, D = kp.shape
     B, H, _ = q.shape
     G, Sk, T = H // Hkv, ptab.shape[1] * page, split_plan.TILE
-    target = fd_kernel.target(n_sm)
+    target = split_plan.target(n_sm, 73_984)     # the bf16 body's at D 128: two an SM
     tiles = [split_plan.lane_tiles(int(n), 1, Sk, window) for n in kv_len]
     per, splits = split_plan.split_plan(Hkv, tiles, target,
-                                        fd_kernel.max_splits(Hkv, Sk, n_sm))
+                                        fd_kernel.max_splits(Hkv, Sk, target))
     k = kp[ptab.long()].reshape(B, Sk, Hkv, D).float()
     v = vp[ptab.long()].reshape(B, Sk, Hkv, D).float()
     out = torch.zeros(B, H, D)
