@@ -1,7 +1,6 @@
 """Architecture registry (port of ``src/repro/configs/__init__.py``).
 
-Lists only the architectures the port serves; the others join as their
-slices land.
+Lists the architectures the port serves: all ten of the JAX registry.
 """
 from __future__ import annotations
 
@@ -20,6 +19,7 @@ _ARCH_MODULES: Dict[str, str] = {
     "minicpm3-4b": "minicpm3_4b",
     "gemma2-9b": "gemma2_9b",
     "zamba2-7b": "zamba2_7b",
+    "whisper-tiny": "whisper_tiny",
 }
 
 

@@ -6,11 +6,15 @@ each replica group to continuous-batching engines (paged KV for the dense,
 vlm and moe configs — a MoE FFN follows ``REPRO_MOE_IMPL``, ``dense`` or
 ``dispatch`` — the paged latent pool for the MLA ``minicpm3-4b``, the
 contiguous SSM state cache for ``mamba2-1.3b``, the contiguous cache for
-``gemma2-9b``'s local/global pairs and ``zamba2-7b``'s hybrid groups).  A
-batch of synthetic requests is routed across the replicas; ``--resize``
-then applies a second plan with half the per-replica batch and reports the
-measured reconfiguration (in-flight requests drain).  Runs on the CUDA
-card unless ``--device cpu``.
+``gemma2-9b``'s local/global pairs, ``zamba2-7b``'s hybrid groups and
+``whisper-tiny``'s decoder, which serves with zero cross-attention state as
+the JAX engine does).  A batch of synthetic requests is routed across the
+replicas; ``--resize`` then applies a second plan with half the per-replica
+batch and reports the measured reconfiguration.  ``--priority`` orders
+admission (request domain) and ``--reconfig`` says what happens to the
+requests in flight on a removed replica (reconfig domain), both through
+policies the port renders itself (:func:`repro_torch.core.policy.render_policy`).
+Runs on the CUDA card unless ``--device cpu``.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ from typing import List, Optional
 
 from repro_torch.configs import list_archs
 from repro_torch.core.plan import Plan, ReplicaGroup
+from repro_torch.core.policy import render_policy
 from repro_torch.serving.backend import make_torch_backend
 from repro_torch.serving.engine import Request
 
@@ -34,7 +39,15 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--prompt-len", type=int, default=24)
     ap.add_argument("--resize", action="store_true",
                     help="apply a second plan (halved batch) and report the "
-                         "measured reconfiguration wall-clock (drain)")
+                         "measured reconfiguration wall-clock")
+    ap.add_argument("--priority", default="fifo",
+                    choices=["fifo", "sjf", "slo-aware"],
+                    help="request-domain admission order (Policy API v2); "
+                         "fifo keeps the v1 behaviour")
+    ap.add_argument("--reconfig", default="drain",
+                    choices=["drain", "migrate", "recompute"],
+                    help="what happens to in-flight requests when --resize "
+                         "removes their replica (reconfig domain)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where the model runs (cuda: the card and its "
                          "kernels; cpu: the plain PyTorch versions)")
@@ -43,6 +56,12 @@ def main(argv: Optional[List[str]] = None) -> int:
     backend = make_torch_backend(args.arch, seed=0, device=args.device,
                                  max_seq_len=128, slots_cap=args.slots,
                                  max_replicas_per_group=args.replicas)
+    if args.priority != "fifo":
+        backend.set_request_policy(render_policy(
+            {"domains": ["placement", "request"],
+             "priority_kind": args.priority},
+            name=args.priority).request_policy())
+        print(f"request policy: {args.priority} admission order")
     model = backend.cfg.name
     plan = Plan((ReplicaGroup(model, "H100-80G", tp=1, batch=args.slots,
                               count=args.replicas),))
@@ -65,6 +84,11 @@ def main(argv: Optional[List[str]] = None) -> int:
           f"{disp / max(len(done), 1):.1f}/request)")
 
     if args.resize:
+        if args.reconfig != "drain":
+            backend.set_reconfig_policy(render_policy(
+                {"domains": ["placement", "reconfig"],
+                 "migration_mode": args.reconfig},
+                name=args.reconfig).reconfig_policy())
         # resubmit a burst so the resize happens with requests in flight
         for r in range(args.requests, args.requests + args.slots):
             backend.pool.submit(model, Request(
@@ -76,11 +100,14 @@ def main(argv: Optional[List[str]] = None) -> int:
                                    batch=max(args.slots // 2, 1),
                                    count=args.replicas),))
         rep2 = backend.apply_plan(plan2, None)
-        print(f"resize[drain]: rebuilt={len(rep2.built)} "
+        print(f"resize[{args.reconfig}]: rebuilt={len(rep2.built)} "
               f"reused={len(rep2.reused)} removed={len(rep2.removed)} "
               f"drained={rep2.drained_requests} "
+              f"migrated={rep2.migrated_requests} "
+              f"recomputed={rep2.recomputed_requests} "
               f"measured reconfig={rep2.wall_s * 1e3:.1f}ms "
-              f"(drain {rep2.drain_wall_s * 1e3:.1f}ms)")
+              f"(hand-off: migrate {rep2.migrate_wall_s * 1e3:.1f}ms / "
+              f"drain {rep2.drain_wall_s * 1e3:.1f}ms)")
         done2 = backend.pool.run_until_drained()
         print(f"post-resize: served {len(done2)} carried/queued requests")
     return 0

@@ -164,10 +164,13 @@ def attention_fwd(p: Attention, cfg: ModelConfig, x: torch.Tensor,
                   kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                   active: Optional[torch.Tensor] = None) -> torch.Tensor:
     """GQA attention over a contiguous cache (the JAX ``attention_fwd``,
-    dense self-attention cases).
+    self-attention cases; cross-attention is :func:`cross_attention_fwd`).
 
     * full-sequence mode, ``kv_cache`` None: causal attention over x itself
-      (flash-attention kernel, window and softcap as configured).
+      (flash-attention kernel, window and softcap as configured).  The JAX
+      function builds the causal mask here whatever its ``causal`` argument
+      says (``src/repro/models/layers.py:226``), so whisper's encoder,
+      which passes ``causal=False``, is causal there and here.
     * cache mode: ``kv_cache = (K, V)`` buffers (B, S_max, Hkv, D) of x's
       batch rows.  Rows flagged in ``active`` (B,) bool (None: all) write
       this chunk's K/V at ``positions`` in place; the others keep their
@@ -219,6 +222,39 @@ def attention_fwd(p: Attention, cfg: ModelConfig, x: torch.Tensor,
         out = fa_ops.flash_attention(q, K, V, causal=True,
                                      softcap=cfg.attn_logit_softcap,
                                      kv_len=lens)
+    return out.reshape(B, C, H * D) @ p.wo
+
+
+def cross_kv(p: Attention, cfg: ModelConfig,
+             enc_out: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A decoder layer's cross-attention keys and values from the encoder
+    output (B, F, d): ``enc_out @ wk`` and ``enc_out @ wv`` as (B, F, Hkv,
+    D), no bias and no RoPE, as the JAX ``_decoder_layer_fwd`` makes them."""
+    B, F, _ = enc_out.shape
+    shape = (B, F, cfg.n_kv_heads, cfg.d_head)
+    return (enc_out @ p.wk).reshape(shape), (enc_out @ p.wv).reshape(shape)
+
+
+def cross_attention_fwd(p: Attention, cfg: ModelConfig, x: torch.Tensor,
+                        xk: torch.Tensor, xv: torch.Tensor,
+                        kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Cross-attention of x (B, C, d) over fixed keys and values xk, xv
+    (B, F, Hkv, D) (the JAX ``attention_fwd`` with ``xattn_kv``): q gets
+    ``wq`` and its bias, no RoPE, and nothing is masked but the keys at or
+    past ``kv_len`` (B,) int32 (None: all F).  A lane with ``kv_len`` 0
+    attends nothing and gets zeros, as the other paths' inactive lanes do
+    (the JAX gather path gives them the mean of the values instead).
+    ``C == 1`` runs the contiguous decode kernel (``kv_len`` required),
+    ``C > 1`` the flash-attention kernel with ``causal=False``."""
+    B, C, _ = x.shape
+    H, D = cfg.n_heads, cfg.d_head
+    q = linear(p.wq, p.bq, x).reshape(B, C, H, D)
+    if C == 1 and kv_len is not None:
+        out = fd_ops.flash_decode(q[:, 0].contiguous(), xk, xv, kv_len,
+                                  cfg.attn_logit_softcap)[:, None]
+    else:
+        out = fa_ops.flash_attention(q, xk, xv, causal=False,
+                                     softcap=cfg.attn_logit_softcap, kv_len=kv_len)
     return out.reshape(B, C, H * D) @ p.wo
 
 

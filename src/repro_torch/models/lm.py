@@ -1,6 +1,6 @@
 """Language model: dense (GQA or MLA, or gemma2's local/global pairs),
-MoE, vlm, SSM and hybrid (zamba2) families (port of
-``src/repro/models/lm.py``).
+MoE, vlm, SSM, hybrid (zamba2) and encoder-decoder (whisper) families
+(port of ``src/repro/models/lm.py``).
 
 The JAX model is a pure function over a parameter pytree with a
 ``lax.scan`` over stacked layers; here it is an ``nn.Module`` (:class:`LM`)
@@ -10,7 +10,9 @@ vlm and moe families or :class:`MambaLayer` for the ssm family),
 ``layer_pairs`` (L/2 pairs of a local and a global :class:`DecoderLayer`,
 gemma2), or ``mamba_groups`` (G groups of ``attn_every − 1``
 :class:`MambaLayer`), ``mamba_tail`` and one ``shared_attn``
-:class:`DecoderLayer` applied after every group (zamba2).  A moe layer's
+:class:`DecoderLayer` applied after every group (zamba2), or whisper's
+encoder stack ``enc_layers`` (with ``enc_pos`` and ``enc_norm``) beside
+its decoder ``layers``, whose layers carry a cross-attention.  A moe layer's
 FFN is chosen by the ``moe_impl`` flag (:mod:`repro_torch.models.flags`)
 on every call.
 Weights come from :func:`init_params` (seeded ``torch.Generator``) or from
@@ -24,7 +26,8 @@ Two caches, as in the JAX package:
   a rolling ring of ``min(window, seq_len)`` rows for a sliding-window
   config — MLA ``ckv/pos``, SSM ``conv/ssm``, gemma2's ``loc_*`` ring and
   ``glob_*`` buffer, zamba2's nested ``groups`` and ``tail`` state with
-  ``attn_*`` per group; :func:`step_with_cache`, :func:`decode_step`,
+  ``attn_*`` per group, whisper's ``k/v/pos`` with the cross-attention's
+  ``xk/xv``; :func:`step_with_cache`, :func:`decode_step`,
   :func:`prefill_step`).
 
 Unlike the JAX functions, which return new caches, the steps write the
@@ -52,7 +55,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device, working_dtype
 from repro_torch.models import flags, ssd
 from repro_torch.models.layers import (MLA, Attention, MoE, RMSNorm, SwiGLU,
-                                       attention_fwd, mla_fwd, moe_dense_mix,
+                                       attention_fwd, cross_attention_fwd,
+                                       cross_kv, mla_fwd, moe_dense_mix,
                                        moe_dispatch, paged_attention_fwd,
                                        paged_mla_fwd, softcap, swiglu)
 
@@ -99,19 +103,6 @@ def _hybrid_shape(cfg: ModelConfig) -> Tuple[int, int, int]:
     return G, cfg.attn_every - 1, cfg.n_layers - G * cfg.attn_every
 
 
-def _check_served(cfg: ModelConfig) -> None:
-    """The port serves the dense (GQA, MLA or local/global pairs), vlm, moe,
-    ssm and hybrid families; encoder-decoder raises with the ROADMAP item
-    (queue 1) that brings it."""
-    later = ("encoder-decoder (ROADMAP queue 1, item 7.6)"
-             if cfg.is_encoder_decoder else
-             None if cfg.family in ("dense", "vlm", "moe", "ssm", "hybrid") else
-             f"family {cfg.family!r}")
-    if later is not None:
-        raise NotImplementedError(f"{cfg.name} ({cfg.family}): {later} is not "
-                                  f"ported yet")
-
-
 def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
                      dtype: Optional[torch.dtype] = None,
                      device: DeviceLike = None) -> Cache:
@@ -121,7 +112,6 @@ def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
     the trash page."""
     if not pageable(cfg):
         raise ValueError(f"family {cfg.family!r} is not pageable")
-    _check_served(cfg)
     device = resolve_device(device)
     dtype = working_dtype(cfg) if dtype is None else dtype
     if cfg.mla is not None:
@@ -149,12 +139,14 @@ def _ffn_fwd(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 class DecoderLayer(nn.Module):
     """Pre-norm decoder layer: rmsnorm → attention (GQA, or MLA when
-    ``cfg.mla`` is set) → rmsnorm → SwiGLU or MoE.  ``attend(attn, h)``
-    applies the attention weights against whichever cache the caller holds
-    (the JAX ``_decoder_layer_fwd`` / ``_paged_decoder_layer_fwd``, dense,
-    vlm and moe path)."""
+    ``cfg.mla`` is set) → with ``cross``, rmsnorm ``ln_x`` → cross-attention
+    ``xattn`` → rmsnorm → SwiGLU or MoE.  ``attend(attn, h)`` applies the
+    attention weights against whichever cache the caller holds, and
+    ``cross(xattn, h)`` the cross-attention's against the encoder's keys
+    (the JAX ``_decoder_layer_fwd`` / ``_paged_decoder_layer_fwd``)."""
 
-    def __init__(self, cfg: ModelConfig, dtype: torch.dtype, device=None):
+    def __init__(self, cfg: ModelConfig, dtype: torch.dtype, device=None,
+                 cross: bool = False):
         super().__init__()
         self.cfg = cfg
         self.ln1 = RMSNorm(cfg.d_model, cfg.norm_eps, device)
@@ -162,9 +154,14 @@ class DecoderLayer(nn.Module):
         self.ln2 = RMSNorm(cfg.d_model, cfg.norm_eps, device)
         self.ffn = (MoE(cfg, dtype, device) if cfg.family == "moe" else
                     SwiGLU(cfg.d_model, cfg.d_ff, dtype, device))
+        if cross:
+            self.ln_x = RMSNorm(cfg.d_model, cfg.norm_eps, device)
+            self.xattn = Attention(cfg, dtype, device)
 
-    def forward(self, x, attend):
+    def forward(self, x, attend, cross=None):
         x = x + attend(self.attn, self.ln1(x))
+        if cross is not None:
+            x = x + cross(self.xattn, self.ln_x(x))
         return x + _ffn_fwd(self.ffn, self.cfg, self.ln2(x))
 
 
@@ -190,11 +187,12 @@ class LM(nn.Module):
     gemma2 ``layer_pairs.{i}.{j}.attn.wq`` ↔ ``layer_pairs/attn/wq[i, j]``,
     j = 0 local, 1 global; zamba2 ``mamba_groups.{g}.{i}.…`` ↔
     ``mamba_groups/…[g, i]``, ``mamba_tail.{i}.…`` ↔ ``mamba_tail/…[i]``,
-    ``shared_attn.…`` ↔ ``shared_attn/…``)."""
+    ``shared_attn.…`` ↔ ``shared_attn/…``; whisper ``enc_pos``,
+    ``enc_layers.{l}.…`` ↔ ``enc_layers/…[l]``, ``enc_norm.scale``,
+    ``layers.{l}.xattn.wq`` ↔ ``layers/xattn/wq[l]``)."""
 
     def __init__(self, cfg: ModelConfig, device: DeviceLike = None):
         super().__init__()
-        _check_served(cfg)
         device = resolve_device(device)
         dtype = working_dtype(cfg)
         self.cfg = cfg
@@ -217,6 +215,14 @@ class LM(nn.Module):
         elif cfg.local_global_every == 2:
             self.layer_pairs = nn.ModuleList(stack(DecoderLayer, 2)
                                              for _ in range(cfg.n_layers // 2))
+        elif cfg.is_encoder_decoder:
+            self.enc_pos = nn.Parameter(
+                torch.zeros((cfg.n_frames, cfg.d_model), dtype=dtype, device=device),
+                requires_grad=False)
+            self.enc_layers = stack(DecoderLayer, cfg.n_encoder_layers)
+            self.enc_norm = RMSNorm(cfg.d_model, cfg.norm_eps, device)
+            self.layers = nn.ModuleList(DecoderLayer(cfg, dtype, device, cross=True)
+                                        for _ in range(cfg.n_layers))
         else:
             self.layers = stack(MambaLayer if cfg.family == "ssm" else DecoderLayer,
                                 cfg.n_layers)
@@ -232,10 +238,11 @@ class LM(nn.Module):
 def _init_scale(cfg: ModelConfig, name: str, shape) -> float:
     """lm.init_params' distributions: uniform ±1/√d_in for matrices, d_in
     being the second-to-last axis (the expert tensors (E, d_in, d_out) too;
-    the embedding uses 1/√d_model), zeros for biases and norm scales."""
+    the embedding and whisper's ``enc_pos`` use 1/√d_model), zeros for
+    biases and norm scales."""
     if len(shape) < 2:
         return 0.0
-    if name == "embed":
+    if name in ("embed", "enc_pos"):
         return 1.0 / math.sqrt(cfg.d_model)
     return 1.0 / math.sqrt(shape[-2])
 
@@ -267,7 +274,7 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 
 # stacked subtrees of the JAX pytree and their stack axes
 _STACKS = {"layers": 1, "layer_pairs": 2, "mamba_groups": 2, "mamba_tail": 1,
-           "shared_attn": 0}
+           "shared_attn": 0, "enc_layers": 1, "enc_norm": 0}
 
 
 def _flatten_jax(cfg: ModelConfig, np_params: Mapping) -> Dict[str, np.ndarray]:
@@ -275,8 +282,9 @@ def _flatten_jax(cfg: ModelConfig, np_params: Mapping) -> Dict[str, np.ndarray]:
     names, one index per stacked axis."""
     flat: Dict[str, np.ndarray] = {"embed": np_params["embed"],
                                    "final_norm.scale": np_params["final_norm"]["scale"]}
-    if "lm_head" in np_params:
-        flat["lm_head"] = np_params["lm_head"]
+    for top in ("lm_head", "enc_pos"):
+        if top in np_params:
+            flat[top] = np_params[top]
 
     def walk(top: str, depth: int, prefix: str, node) -> None:
         if isinstance(node, Mapping):
@@ -361,9 +369,41 @@ def _logits(model: LM, cfg: ModelConfig, x: torch.Tensor,
 # --------------------------------------------------------------------------- #
 # full-sequence forward
 # --------------------------------------------------------------------------- #
-def forward(model: LM, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+def encode(model: LM, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
+    """Whisper's encoder over frame embeddings (B, F, d): ``enc_pos`` added,
+    then per layer self-attention with RoPE at the frame positions
+    0 … F−1 and SwiGLU, then ``enc_norm`` (the encoder of the JAX
+    ``forward``).  The self-attention is causal, as the JAX encoder's is:
+    it passes ``causal=False``, which the JAX ``attention_fwd`` ignores in
+    full-sequence mode.  Returns (B, F, d) in the working dtype."""
+    x = frames.to(model.enc_pos.dtype) + model.enc_pos[None]
+    B, F, _ = x.shape
+    fpos = torch.arange(F, device=x.device)[None].expand(B, F)
+    for layer in model.enc_layers:
+        x = x + attention_fwd(layer.attn, cfg, layer.ln1(x), fpos, None)
+        x = x + swiglu(layer.ffn, layer.ln2(x))
+    return model.enc_norm(x)
+
+
+def fill_cross_cache(model: LM, cfg: ModelConfig, cache: Cache,
+                     enc_out: torch.Tensor) -> Cache:
+    """Write each decoder layer's cross-attention keys and values of the
+    encoder output (B, F, d), one row per cache slot, into the cache's
+    ``xk``/``xv`` in place.  The serving engine never calls it: like the
+    JAX engine, it serves with the zeros :func:`init_cache` gives."""
+    for l, layer in enumerate(model.layers):
+        xk, xv = cross_kv(layer.xattn, cfg, enc_out)
+        cache["xk"][l].copy_(xk)
+        cache["xv"][l].copy_(xv)
+    return cache
+
+
+def forward(model: LM, cfg: ModelConfig, tokens: torch.Tensor,
+            frames: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Full-sequence forward from position 0 without a cache (the JAX
-    ``forward``, served families). tokens (B, S) → logits (B, S, V)."""
+    ``forward``). tokens (B, S) → logits (B, S, V); an encoder-decoder
+    config also takes the frame embeddings (B, F, d), runs :func:`encode`
+    and cross-attends every decoder layer to it."""
     B, S = tokens.shape
     x = _embed(model, cfg, tokens)
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
@@ -383,6 +423,14 @@ def forward(model: LM, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     elif cfg.local_global_every == 2:
         for local, glob in model.layer_pairs:
             x = glob(local(x, attend(cfg.sliding_window)), attend(None))
+    elif cfg.is_encoder_decoder:
+        if frames is None:
+            raise ValueError(f"{cfg.name}: forward needs frame embeddings")
+        enc = encode(model, cfg, frames)
+        for layer in model.layers:
+            xk, xv = cross_kv(layer.xattn, cfg, enc)
+            x = layer(x, attend(None),
+                      lambda a, h: cross_attention_fwd(a, cfg, h, xk, xv))
     else:
         for layer in model.layers:
             x = layer(x, attend(cfg.sliding_window))
@@ -410,8 +458,8 @@ def init_cache(cfg: ModelConfig, B: int, seq_len: int,
     ``loc_{k,v,pos}`` (L/2, B, min(window, seq_len), …) and
     ``glob_{k,v,pos}`` (L/2, B, seq_len, …); zamba2 ``groups`` =
     ``{conv, ssm}`` (G, per_group, B, …), ``attn_{k,v,pos}`` (G, B,
-    seq_len, …) and ``tail`` = ``{conv, ssm}`` (trailing, B, …)."""
-    _check_served(cfg)
+    seq_len, …) and ``tail`` = ``{conv, ssm}`` (trailing, B, …); whisper
+    the dense keys and ``{"xk", "xv"}`` (L, B, n_frames, Hkv, D), zeros."""
     device = resolve_device(device)
     dtype = working_dtype(cfg) if dtype is None else dtype
 
@@ -448,6 +496,10 @@ def init_cache(cfg: ModelConfig, B: int, seq_len: int,
         return {"ckv": torch.zeros((L, B, S, m.kv_lora_rank + m.qk_rope_head_dim),
                                    dtype=dtype, device=device),
                 "pos": torch.full((L, B, S), -1, dtype=torch.int32, device=device)}
+    if cfg.is_encoder_decoder:
+        shape = (L, B, cfg.n_frames, cfg.n_kv_heads, cfg.d_head)
+        return {**kv(L, S), "xk": torch.zeros(shape, dtype=dtype, device=device),
+                "xv": torch.zeros(shape, dtype=dtype, device=device)}
     return kv(L, S)
 
 
@@ -466,7 +518,9 @@ def step_with_cache(model: LM, cfg: ModelConfig, cache: Cache,
     rows outside ``write`` attend nothing (zeros).  SSM rows continue from
     their carried state: S == 1 runs the recurrent step, S > 1 the chunked
     scan.  A sliding-window config writes its ring at ``pos2 % S``; a
-    chunk must not wrap it (the engine's chunk rule).  Returns logits
+    chunk must not wrap it (the engine's chunk rule).  An encoder-decoder
+    config cross-attends each layer to its ``xk``/``xv`` rows, all
+    ``n_frames`` of them (none for rows outside ``write``).  Returns logits
     (n, C, V) in f32, or (n, 1, V) when ``last_only``, and the cache.
     """
     n, C = tokens.shape
@@ -502,11 +556,11 @@ def step_with_cache(model: LM, cfg: ModelConfig, cache: Cache,
                                               active=active))
         return _logits(model, cfg, x, last_only), cache
 
-    def attend(layer, x, prefix: str, l: int, window: Optional[int]):
+    def attend(layer, x, prefix: str, l: int, window: Optional[int], cross=None):
         """``layer`` against buffer ``l`` of the ``{prefix}k/v`` stack."""
         kv = (cache[f"{prefix}k"][l, lo:hi], cache[f"{prefix}v"][l, lo:hi])
         return layer(x, lambda a, h: attention_fwd(a, cfg, h, pos2, window,
-                                                   kv_cache=kv, active=active))
+                                                   kv_cache=kv, active=active), cross)
 
     if cfg.family == "hybrid":
         _write_pos(cache["attn_pos"][:, lo:hi], pos2, active, ring=False)
@@ -527,8 +581,12 @@ def step_with_cache(model: LM, cfg: ModelConfig, cache: Cache,
     else:
         window = ring_window(cfg)
         _write_pos(cache["pos"][:, lo:hi], pos2, active, ring=window is not None)
+        xlen = (torch.where(active, cache["xk"].shape[2], 0).to(torch.int32)
+                if cfg.is_encoder_decoder else None)
         for l, layer in enumerate(model.layers):
-            x = attend(layer, x, "", l, window)
+            cross = None if xlen is None else lambda a, h: cross_attention_fwd(
+                a, cfg, h, cache["xk"][l, lo:hi], cache["xv"][l, lo:hi], xlen)
+            x = attend(layer, x, "", l, window, cross)
     return _logits(model, cfg, x, last_only), cache
 
 
@@ -776,7 +834,8 @@ def install_slot(cfg: ModelConfig, cache: Cache, slot: int, state: Mapping,
     positions < ``position``).  The whole slot is overwritten, so a previous
     occupant can never leak through.  A sliding-window ring (the pure-SWA
     buffer, gemma2's local buffer) takes the state rotated by position;
-    gemma2's global buffer and zamba2's per-group buffers index by it.
+    gemma2's global buffer and zamba2's per-group buffers index by it;
+    recurrent state and whisper's ``xk``/``xv`` are copied whole.
     Raises :class:`SlotMigrationError` (cache untouched) when the state
     cannot be represented in the target cache; the caller then falls back
     to recompute-from-continuation.
@@ -789,19 +848,20 @@ def install_slot(cfg: ModelConfig, cache: Cache, slot: int, state: Mapping,
                 [cache[prefix + k] for k in keys], [state[prefix + k] for k in keys],
                 cache[prefix + "pos"], state[prefix + "pos"], slot, window, position))
 
-        def recurrent(dst: Cache, src: Mapping, stack: int) -> None:
+        def copied(dst: Cache, src: Mapping, stack: int,
+                   keys=("conv", "ssm")) -> None:
             idx = (slice(None),) * stack + (slot,)
-            for k in ("conv", "ssm"):
+            for k in keys:
                 t = _install_copy(dst[k][idx], src[k])
                 writes.append(lambda k=k, t=t: dst[k][idx].copy_(t))
 
         if cfg.family == "ssm":
-            recurrent(cache, state, 1)
+            copied(cache, state, 1)
         elif cfg.family == "hybrid":
-            recurrent(cache["groups"], state["groups"], 2)
+            copied(cache["groups"], state["groups"], 2)
             if "tail" in cache:
                 _require("tail" in state, "state lacks the mamba tail stack")
-                recurrent(cache["tail"], state["tail"], 1)
+                copied(cache["tail"], state["tail"], 1)
             attn("attn_", ("k", "v"), None)
         elif cfg.mla is not None:
             attn("", ("ckv",), None)
@@ -810,6 +870,8 @@ def install_slot(cfg: ModelConfig, cache: Cache, slot: int, state: Mapping,
             attn("glob_", ("k", "v"), None)
         else:
             attn("", ("k", "v"), ring_window(cfg))
+            if cfg.is_encoder_decoder:
+                copied(cache, state, 1, ("xk", "xv"))
         for write in writes:
             write()
         return cache

@@ -2,7 +2,6 @@
 its entry points never fall back to the CPU when no card is present, and
 its kernel modules import on a host without ``triton`` or ``nvcc``."""
 import ast
-import dataclasses
 import re
 import subprocess
 import sys
@@ -51,6 +50,9 @@ def _forbidden_imports(path: Path):
 def test_port_never_imports_jax_or_the_jax_package():
     files = _port_files()
     assert len(files) > 20 and (ROOT / "chip_smoke.py").exists()
+    port = ROOT / "src" / "repro_torch"
+    assert {port / "core" / "schedulers.py", port / "core" / "policy.py",
+            port / "core" / "plan.py", port / "configs" / "whisper_tiny.py"} <= set(files)
     offenders = {str(p.relative_to(ROOT)): b for p in files
                  if (b := _forbidden_imports(p))}
     assert offenders == {}
@@ -140,19 +142,15 @@ def test_ops_route_only_cpu_and_cuda():
 
 
 def test_unported_paths_raise_not_implemented():
-    """Encoder-decoder still raises, naming the ROADMAP item that brings
-    it; gemma2's local/global pairs and zamba2's hybrid groups are served."""
+    """Fault handling and sharded replicas still raise; every config of the
+    registry, whisper's encoder-decoder included, builds its model and its
+    contiguous cache."""
     cfg = get_config("qwen2-1.5b").reduced()
     model = lm.init_params(cfg, device="cpu")
-    for arch in ("gemma2-9b", "zamba2-7b"):
+    for arch in ("gemma2-9b", "zamba2-7b", "whisper-tiny"):
         served = get_config(arch).reduced()
         lm.init_cache(served, 1, 32, device="cpu")
         lm.init_params(served, device="cpu")
-    encdec = dataclasses.replace(cfg, is_encoder_decoder=True, n_encoder_layers=2)
-    with pytest.raises(NotImplementedError, match=r"encoder-decoder \(ROADMAP queue 1, item 7\.6\)"):
-        lm.init_params(encdec, device="cpu")
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        lm.init_cache(encdec, 1, 32, device="cpu")
     eng = Engine(cfg, model, n_slots=1, max_seq_len=32, device="cpu")
     backend = TorchBackend(cfg, model, device="cpu")
     with pytest.raises(NotImplementedError, match="faults"):
