@@ -59,6 +59,20 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
          JAX engine serves with, profiled, 8 → 4-slot migrations; then
          ``forward`` with 1500 frame embeddings and steps on a cache whose
          cross-attention keys that encoder filled;
+     4l. replica failure: qwen2-1.5b (28 layers, bf16) on the paged pool,
+         2 replicas × 4 slots under the ``retry-migrate`` recovery policy,
+         6 requests of 128–512 tokens; a seeded ``FaultInjector`` kills a
+         replica mid-decode (salvage onto the survivor, recompute the
+         rest), then a seed that denies the export (recompute only); no
+         page leaks, no request shed or cut short, each disturbed request's
+         tokens equal the undisturbed pool's or differ first at a bf16 tie,
+         and recomputed requests re-prefill through flash attention;
+     4m. the port's ``Autopoiesis`` governing the card: a full-width
+         qwen2-1.5b ``TorchBackend`` (4 slots, one replica per group) as
+         the data plane over 6 intervals of the volatile trace, a
+         control-plane cycle (analytic rung, shadow replay) after the
+         fourth, then the planted ``BAD_REQUEST_SOURCE`` canaried over 2
+         more and rolled back; every interval measured, no page leaks;
   5. the port on the card (bf16, kernels) against the port on the CPU (f32,
      plain versions) for one prefill chunk and 8 decode steps at full
      width: qwen2-1.5b, mamba2-1.3b and minicpm3-4b at 2 layers,
@@ -2509,6 +2523,295 @@ def serve_whisper(torch, card: str, cfg) -> dict:
     return out
 
 
+def fault_run(torch, cfg, model, prompts: dict, plan, inj, max_new: int) -> dict:
+    """Serve ``prompts`` on a fresh 2 × 4-slot ``TorchBackend`` under the
+    ``retry-migrate`` recovery policy, the way ``launch/serve.py --faults``
+    does: three rounds of two steps per engine, the injector's events
+    (``inj`` None: none), a heal to the plan after each; then drain.  The
+    launch counters are zeroed at the submit."""
+    from repro_torch.launch.serve import recovery_policy
+    from repro_torch.serving.backend import TorchBackend
+    from repro_torch.serving.engine import Request
+
+    backend = TorchBackend(cfg, model, max_seq_len=1024, slots_cap=4,
+                           max_replicas_per_group=2, page_size=16, device="cuda")
+    pool = backend.pool
+    pool.set_recovery_policy(recovery_policy())
+    backend.apply_plan(plan, None)
+    need(pool.submit(cfg.name, Request(rid=-1, prompt=list(range(2, 100)),
+                                       max_new_tokens=2)), "warm-up not routed")
+    pool.run_until_drained()                        # warm-up, not counted
+    pool.finished.clear()
+    d0 = pool.total_dispatches
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for rid, p in prompts.items():
+        need(pool.submit(cfg.name, Request(rid=rid, prompt=list(p), max_new_tokens=max_new,
+                                           arrival_time=time.monotonic())),
+             f"request {rid} not routed")
+    reports, handoff, victims, fa_at_kill = [], [], {}, None
+    for i in range(3):
+        for eng in pool.engines:
+            eng.step()
+            eng.step()
+        if inj is None:
+            continue
+        held = {id(e): sorted(s.request.rid for s in e.active.values())
+                for e in pool.engines}
+        seen = len(pool.failure_log)
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        inj.step(pool, i)
+        torch.cuda.synchronize()
+        dt = time.monotonic() - t1
+        alive = {id(e) for e in pool.engines}
+        for eid, rids in held.items():
+            if eid not in alive:
+                victims.update({rid: i for rid in rids})
+        for rep in pool.failure_log[seen:]:
+            reports.append(rep)
+            handoff.append(dt)
+            if fa_at_kill is None:
+                fa_at_kill = read_launches()["flash_attention"]
+        backend.apply_plan(plan, None)              # heal to the target count
+    pool.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = read_launches()
+    disp = pool.total_dispatches - d0
+    leaked = [e.release_all_pages() for e in pool.engines]
+    out = dict(finished=list(pool.finished), reports=reports, handoff_s=handoff,
+               victims=victims, wall_s=wall, counts=counts, dispatches=disp,
+               shed=[r.rid for r in pool.shed_requests], leaked=leaked,
+               fa_after_kill=None if fa_at_kill is None
+               else counts["flash_attention"] - fa_at_kill,
+               salvaged=pool.salvaged_requests, retry_exhausted=pool.retry_exhausted,
+               injector=None if inj is None else
+               dict(kills=inj.kills, skipped=inj.skipped, denied=inj.denied,
+                    straggles=inj.straggles))
+    del backend, pool
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_faults(torch, card: str) -> dict:
+    """Phase 4l: replica failure on the card.  qwen2-1.5b at full width and
+    depth (bf16, the paged pool) on 2 replicas × 4 slots under the
+    ``retry-migrate`` recovery policy; 6 requests of 128–512 tokens, 32 new
+    each.  ``FaultInjector.from_seed(0, n_events=3, horizon=3, kill_ratio=1.0,
+    deny_export_rate=0.0)`` kills a replica mid-decode (its live slots
+    salvaged onto the survivor where a slot is free, the rest recomputed),
+    then a seed with ``deny_export_rate=1.0`` takes the recompute path.
+    Gates: no page leaks, every request ends with its whole budget (none
+    shed), each disturbed request's tokens equal the undisturbed pool's or
+    differ first at a bf16 tie (phase 4d's rule), and the recomputed
+    requests re-prefill through flash attention."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.plan import Plan, ReplicaGroup
+    from repro_torch.models import lm
+    from repro_torch.serving.backend import measured_interval_metrics
+    from repro_torch.serving.faults import FaultInjector
+
+    tol, MAX_NEW = TOL["bfloat16"], 32
+    cfg = get_config("qwen2-1.5b")
+    L = cfg.n_layers
+    model = lm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    plan = Plan((ReplicaGroup(cfg.name, "H100-80G", tp=1, batch=4, count=2),))
+    rng = np.random.default_rng(11)
+    prompts = {rid: random_prompt(rng, cfg.vocab_size, 128, 512) for rid in range(6)}
+    base = fault_run(torch, cfg, model, prompts, plan, None, MAX_NEW)
+    want = {s.request.rid: s.generated for s in base["finished"]}
+    need(sorted(want) == sorted(prompts) and all(len(g) == MAX_NEW for g in want.values()),
+         "undisturbed pool: requests lost or cut short")
+    need(base["counts"]["flash_attention"] > 0 and base["counts"]["paged_flash_decode"] > 0,
+         f"undisturbed pool launches {base['counts']}")
+    out = {}
+    for tag, kw in (("salvage", dict(deny_export_rate=0.0)),
+                    ("deny-export", dict(deny_export_rate=1.0))):
+        inj = FaultInjector.from_seed(0, n_events=3, horizon=3, kill_ratio=1.0, **kw)
+        run = fault_run(torch, cfg, model, prompts, plan, inj, MAX_NEW)
+        reps = run["reports"]
+        need(reps, f"{tag}: no replica was killed")
+        for rep, dt in zip(reps, run["handoff_s"]):
+            print(f"[faults] {tag}: {rep.reason} model={rep.model} salvaged={rep.salvaged} "
+                  f"recomputed={rep.recomputed} requeued={rep.requeued} shed={rep.shed} "
+                  f"leaked_pages={rep.leaked_pages}; fail() and its hand-off "
+                  f"{dt * 1e3:.2f} ms (host wall, synchronised)")
+        need(all(r.leaked_pages == 0 for r in reps) and all(n == 0 for n in run["leaked"]),
+             f"{tag}: leaked pages {[r.leaked_pages for r in reps]} / {run['leaked']}")
+        need(run["shed"] == [] and all(r.shed == 0 for r in reps), f"{tag}: shed {run['shed']}")
+        got = {}
+        for s in run["finished"]:
+            rid = s.request.rid
+            need(s.prior_generated + len(s.generated) == MAX_NEW,
+                 f"{tag}: request {rid} ended with {s.prior_generated + len(s.generated)} "
+                 f"of {MAX_NEW} tokens")
+            got[rid] = (list(s.request.prompt[len(prompts[rid]):]) + list(s.generated),
+                        len(s.request.prompt) > len(prompts[rid]))
+        need(sorted(got) == sorted(prompts), f"{tag}: finished {sorted(got)}")
+        recomputed = sum(r.recomputed for r in reps)
+        salvaged = sum(r.salvaged for r in reps)
+        need(sum(1 for _, rec in got.values() if rec) == recomputed,
+             f"{tag}: {recomputed} recomputed in the reports, continuations "
+             f"{sum(1 for _, rec in got.values() if rec)}")
+        if kw["deny_export_rate"] == 1.0:
+            need(salvaged == 0 and recomputed > 0, f"{tag}: salvaged {salvaged}, "
+                 f"recomputed {recomputed}")
+        else:
+            need(salvaged > 0, f"{tag}: nothing salvaged")
+        need(recomputed == 0 or run["fa_after_kill"] >= L * recomputed,
+             f"{tag}: {recomputed} recomputed requests but {run['fa_after_kill']} flash "
+             f"attention launches after the kill (want ≥ L·{recomputed})")
+        equal, ties = 0, []
+        for rid in sorted(run["victims"]):
+            toks, rec = got[rid]
+            how = "recomputed" if rec else "salvaged"
+            if toks == want[rid]:
+                equal += 1
+                continue
+            i = next(j for j, (a, b) in enumerate(zip(toks, want[rid])) if a != b)
+            seq, w, g = prompts[rid] + want[rid][:i], want[rid][i], toks[i]
+            lg = served_logits(torch, cfg, model, seq, [w])[0]
+            gap = abs(float(lg[w]) - float(lg[g]))
+            ties.append(gap)
+            print(f"[faults] {tag}: {how} request {rid}: first differing token at "
+                  f"position {i}, logit gap {gap:.4e} in the undisturbed path's logits")
+            need(gap <= tol + tol * abs(float(lg[w])),
+                 f"{tag}: {how} request {rid} differs from the undisturbed run beyond a "
+                 f"bf16 tie")
+        need(run["counts"]["paged_flash_decode"] > 0 and run["counts"]["rmsnorm"] > 0,
+             f"{tag}: launches {run['counts']}")
+        check_paged_launches(run["counts"], cfg, run["dispatches"])
+        met = measured_interval_metrics(run["finished"], run["wall_s"])
+        inj_c = run["injector"]
+        print(f"[faults] {tag}: kills={inj_c['kills']} skipped={inj_c['skipped']} "
+              f"denied={inj_c['denied']}; salvaged {salvaged}, recomputed {recomputed} "
+              f"(flash attention {run['fa_after_kill']} launches after the kill); "
+              f"{len(run['victims'])} requests on the killed replica: {equal} with the "
+              f"undisturbed tokens, {len(ties)} within-tolerance ties; "
+              f"{met_text(met, run['wall_s'], run['dispatches'])}; launches {run['counts']} "
+              f"[{card}; 6 requests of {min(map(len, prompts.values()))}-"
+              f"{max(map(len, prompts.values()))} tokens, {MAX_NEW} new]")
+        out[tag] = dict(metrics_of(met, run["dispatches"]), reports=[
+            dataclasses.asdict(r) for r in reps], handoff_ms=[d * 1e3 for d in run["handoff_s"]],
+            salvaged=salvaged, recomputed=recomputed, equal=equal, ties=len(ties),
+            launches=run["counts"], wall_s=run["wall_s"])
+    bmet = measured_interval_metrics(base["finished"], base["wall_s"])
+    print(f"[faults] undisturbed: {met_text(bmet, base['wall_s'], base['dispatches'])}")
+    out["undisturbed"] = dict(metrics_of(bmet, base["dispatches"]), wall_s=base["wall_s"])
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_autopoiesis(torch, card: str) -> dict:
+    """Phase 4m: the port's Autopoiesis governing the card — the counterpart
+    of ``examples/serve_autopoiesis.py``.  The data plane is a full-width
+    qwen2-1.5b ``TorchBackend`` (bf16, paged, ``slots_cap`` 4, one replica
+    per group); the control plane evolves on the port's analytic
+    ``Evaluator`` and ``Simulator`` and replays its finalists on
+    ``ShadowReplayEval``.  The first 6 intervals of the volatile trace with
+    a control-plane cycle after the fourth (every 3, run synchronously; its
+    winner canaried over the next two), then the planted
+    ``BAD_REQUEST_SOURCE`` published with a ``CanaryTicket`` as
+    ``--guarded`` does, over the next 2.  Gates: every interval
+    measured with finite TTFT and TPOT, no page leaks, at least one cycle,
+    and the regressor rolled back (a commit fails)."""
+    from repro_torch.core.evaluator import Evaluator
+    from repro_torch.core.evolution import EvolutionConfig
+    from repro_torch.core.plan import HARDWARE, QWEN25_FAMILY
+    from repro_torch.core.policy import Policy, seed_policies
+    from repro_torch.core.runtime import Autopoiesis, CanaryTicket
+    from repro_torch.core.simulator import Simulator
+    from repro_torch.serving.backend import make_torch_backend
+    from repro_torch.serving.shadow import BAD_REQUEST_SOURCE, ShadowReplayEval
+    from repro_torch.traces import volatile_workload_trace
+
+    backend = make_torch_backend("qwen2-1.5b", seed=0, reduced=False, slots_cap=4,
+                                 max_replicas_per_group=1)
+    built, factory = [], backend.pool._factory      # every engine, torn down or not
+    backend.pool._factory = lambda g: built.append(factory(g)) or built[-1]
+    models = {m.name: m for m in QWEN25_FAMILY.values()}
+    sim = Simulator(models, HARDWARE)
+    ap = Autopoiesis(
+        Evaluator(sim, models, HARDWARE, candidate_timeout_s=5.0),
+        seed_policies()["greedy-reactive"],
+        EvolutionConfig(max_iterations=2, patience=2, evolution_timeout_s=30,
+                        shadow_top_k=2, seed=0),
+        window=6, evolve_every=3, backend=backend,
+        shadow=ShadowReplayEval(sim, models, HARDWARE, candidate_timeout_s=5.0))
+    trace = volatile_workload_trace()
+    dp, cp = ap.data_plane, ap.control_plane
+    rows, regressor = [], None
+    zero_launches()
+    d0 = backend.pool.total_dispatches
+
+    def interval(i, obs, tag):
+        nonlocal regressor
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out = dp.step(obs)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        m, rep, c = out["metrics"], out["reconfig_report"], out["canary"]
+        need(m is not None and m.measured and m.requests > 0,
+             f"interval {i}: not a measured interval")
+        need(math.isfinite(m.ttft_s) and math.isfinite(m.tpot_s) and m.ttft_s > 0
+             and m.tpot_s > 0, f"interval {i}: TTFT {m.ttft_s} TPOT {m.tpot_s}")
+        rebuild = rep.wall_s if rep is not None else 0.0
+        print(f"[autopoiesis] {tag} interval {i}: {len(out['plan'].groups)} groups on "
+              f"{len(backend.pool.engines)} engines, rescheduled={out['rescheduled']} "
+              f"swap={out['hot_swapped']}; rebuild {rebuild * 1e3:.1f} ms, serve "
+              f"{m.wall_s * 1e3:.1f} ms, step {wall * 1e3:.1f} ms (host walls); "
+              f"{m.requests} requests, TTFT p95 {m.ttft_p95_s * 1e3:.1f} ms, TPOT "
+              f"{m.tpot_s * 1e3:.2f} ms" + (f"; canary {c}" if c is not None else ""))
+        rows.append(dict(interval=i, tag=tag, groups=len(out["plan"].groups),
+                         rebuild_ms=rebuild * 1e3, serve_ms=m.wall_s * 1e3,
+                         step_ms=wall * 1e3, ttft_p95_ms=m.ttft_p95_s * 1e3,
+                         tpot_ms=m.tpot_s * 1e3, canary=c))
+        if c is not None and c.get("candidate") == "regressor" and c["status"] != "running":
+            regressor = c
+
+    cycle_s = []
+    for i, obs in enumerate(trace.observations[:6]):
+        interval(i, obs, "evolve")
+        if i > 0 and i % 3 == 0:
+            t0 = time.monotonic()
+            cp.run_cycle(dp.policy)
+            cycle_s.append(time.monotonic() - t0)
+            print(f"[autopoiesis] control-plane cycle {cp.cycles}: {cycle_s[-1]:.2f}s "
+                  f"(host), published {cp.published}, best shadow fitness "
+                  f"{cp.best_fitness:.4f}")
+    ap.stage.publish(Policy(source=BAD_REQUEST_SOURCE, name="regressor"),
+                     ticket=CanaryTicket(intervals=2, max_regression=0.5,
+                                         policy_name="regressor"))
+    for i, obs in enumerate(trace.observations[6:8], start=6):
+        interval(i, obs, "planted")
+    counts = read_launches()
+    disp = backend.pool.total_dispatches - d0
+    leaked = [e.release_all_pages() for e in built]
+    print(f"[autopoiesis] cycles={cp.cycles} skipped={cp.skipped_cycles} "
+          f"published={cp.published} | swaps={dp.swap_count} commits={dp.commits} "
+          f"rollbacks={dp.rollbacks}; launches {counts} over {disp} dispatches; "
+          f"leaked pages {leaked} over the {len(built)} engines built [{card}]")
+    for reason in dp.rollback_reasons:
+        print(f"[autopoiesis] rollback: {reason}")
+    need(all(n == 0 for n in leaked), f"leaked pages {leaked}")
+    need(cp.cycles >= 1, "no control-plane cycle completed")
+    need(regressor is not None and regressor["status"] == "rolled_back",
+         f"the planted regressor was not rolled back: {regressor}")
+    check_paged_launches(counts, backend.cfg, disp)
+    out = dict(cycles=cp.cycles, published=cp.published, swaps=dp.swap_count,
+               commits=dp.commits, rollbacks=dp.rollbacks,
+               rollback_reasons=list(dp.rollback_reasons), cycle_s=cycle_s,
+               intervals=rows, launches=counts, dispatches=disp)
+    del ap, backend
+    torch.cuda.empty_cache()
+    return out
+
+
 # --------------------------------------------------------------------------- #
 # phase 5: port on the card vs port on the CPU
 # --------------------------------------------------------------------------- #
@@ -2790,14 +3093,21 @@ def main(argv=None) -> int:
     gemma2 = timed("4i", serve_gemma2, get_config("gemma2-9b"), 8)
     zamba2 = timed("4j", serve_zamba2, get_config("zamba2-7b"), 21)
     whisper = timed("4k", serve_whisper, get_config("whisper-tiny"))
+    faults = timed("4l", serve_faults)
+    autopoiesis = timed("4m", serve_autopoiesis)
     # whisper's main path adds its launches to rows 2-4: serving, forward
-    # with frames and the encoder-filled steps, each counted from zero
+    # with frames and the encoder-filled steps, each counted from zero,
     w_counts = [whisper["launches"], whisper["forward_launches"],
                 whisper["filled_step_launches"]]
-    launches = {"paged_flash_decode": counts["paged_flash_decode"],
+    # and the paged qwen2 paths of 4l (both faulted pools) and 4m to rows 1-3
+    q_counts = [faults["salvage"]["launches"], faults["deny-export"]["launches"],
+                autopoiesis["launches"]]
+    launches = {"paged_flash_decode": counts["paged_flash_decode"]
+                + sum(c["paged_flash_decode"] for c in q_counts),
                 "flash_attention": counts["flash_attention"]
-                + sum(c["flash_attention"] for c in w_counts),
-                "rmsnorm": counts["rmsnorm"] + sum(c["rmsnorm"] for c in w_counts),
+                + sum(c["flash_attention"] for c in w_counts + q_counts),
+                "rmsnorm": counts["rmsnorm"]
+                + sum(c["rmsnorm"] for c in w_counts + q_counts),
                 "flash_decode": contig_counts["flash_decode"]
                 + sum(c["flash_decode"] for c in w_counts),
                 "moe_gmm": mixtral["dense"]["launches"]["moe_gmm"],
@@ -2843,6 +3153,7 @@ def main(argv=None) -> int:
                       "contiguous_qwen2": contig_metrics, "migration": migration,
                       "mixtral": mixtral, "registry": registry, "mla": mla, "ring": ring,
                       "gemma2": gemma2, "zamba2": zamba2, "whisper": whisper,
+                      "faults": faults, "autopoiesis": autopoiesis,
                       "whisper_kernels": rows["whisper"], "head_dims": rows["head_dims"],
                       "moe_gmm_shapes": rows["moe_gmm_shapes"],
                       "moe_gmm_8x22b": rows["moe_gmm_8x22b"],

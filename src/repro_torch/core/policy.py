@@ -190,9 +190,11 @@ class KVCachePolicy:
 
 @dataclass
 class RecoveryPolicy:
-    """Compiled recovery-domain hook plus its fault-handling knobs.  The
-    port's pool stores it (the data plane installs one on every swap); the
-    failure path that consults it comes with the faults slice."""
+    """Compiled recovery-domain hook plus its fault-handling knobs:
+    ``on_failure(fctx)`` answers salvage | recompute | shed per in-flight
+    request on a replica that died; the knobs drive the pool's retry
+    budget, capped exponential backoff, straggler quarantine, re-plan on
+    failure and degraded-capacity admission clamp."""
     mode_fn: Callable[[Any], str]
     name: str = "anon"
     retry_budget: int = 3

@@ -1,2 +1,2 @@
-"""Paged serving engine, engine pool and backend of the PyTorch port
-(port of ``src/repro/serving/``)."""
+"""Serving engine, engine pool, backends, fault injection and the shadow
+twin of the PyTorch port (port of ``src/repro/serving/``)."""

@@ -1,18 +1,29 @@
-"""PyTorch serving backend (port of ``src/repro/serving/backend.py``).
+"""Serving backends (port of ``src/repro/serving/backend.py``): how the data
+plane executes a serving plan.
 
-:class:`TorchBackend` is the counterpart of ``JaxBackend``: a real
-multi-replica :class:`~repro_torch.serving.pool.EnginePool` over the port's
-engines (paged for pageable families, contiguous otherwise).  ``apply_plan`` measures the rebuild wall-clock and
-``serve_interval`` runs real requests and measures TTFT/TPOT/tok/s, so the
-two-plane runtime's ``DataPlane`` drives it exactly like the JAX backend
-(it satisfies the same ``Backend`` protocol by duck typing).
+* :class:`SimBackend` closes the loop against the roofline simulator
+  (``IntervalMetrics.measured`` is False, so nothing is blended into
+  fitness).
+* :class:`TorchBackend` is the counterpart of ``JaxBackend``: a real
+  multi-replica :class:`~repro_torch.serving.pool.EnginePool` over the
+  port's engines (paged for pageable families, contiguous otherwise).
+  ``apply_plan`` measures the rebuild wall-clock and ``serve_interval``
+  runs real requests and measures TTFT/TPOT/tok/s; an optional
+  :class:`~repro_torch.serving.faults.FaultInjector` kills replicas while
+  it serves.
+* :class:`repro_torch.serving.shadow.ShadowBackend` is the deterministic,
+  virtually-clocked pool of roofline-costed shadow engines.
+
+All satisfy the :class:`Backend` protocol, so the port's ``DataPlane`` (and
+the JAX package's, by duck typing) drives any of them.
 """
 from __future__ import annotations
 
 import math
 import time
 from dataclasses import dataclass, field
-from typing import Optional, Sequence, Tuple
+from typing import (List, Optional, Protocol, Sequence, Tuple,
+                    runtime_checkable)
 
 import torch
 
@@ -22,6 +33,7 @@ from repro_torch.core.execution_model import IntervalMetrics
 from repro_torch.core.plan import Ctx, Plan, ReplicaGroup, Workload
 from repro_torch.core.policy import (KVCachePolicy, ReconfigPolicy,
                                      RecoveryPolicy, RequestPolicy)
+from repro_torch.core.simulator import Simulator
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import lm
 from repro_torch.serving.engine import Engine, Request
@@ -85,6 +97,103 @@ class ReconfigReport:
         return bool(self.built or self.removed)
 
 
+@runtime_checkable
+class Backend(Protocol):
+    """Data-plane execution target for serving plans."""
+
+    def apply_plan(self, plan: Plan, ctx: Ctx) -> ReconfigReport:
+        """Reconfigure to ``plan``; returns measured + simulated cost."""
+        ...
+
+    def serve_interval(self, workloads: Sequence[Workload]) -> IntervalMetrics:
+        """Serve one monitoring interval's workloads under the current plan."""
+        ...
+
+    def set_request_policy(self, rp: Optional[RequestPolicy]) -> None:
+        """Install (or clear, with None) the request-domain scheduling hooks
+        of the live PolicyProgram — Policy API v2's second evolvable surface."""
+        ...
+
+    def set_reconfig_policy(self, rp: Optional[ReconfigPolicy]) -> None:
+        """Install (or clear, with None) the reconfig-domain hook deciding
+        drain|migrate|recompute per in-flight request on plan changes —
+        the third evolvable surface (reconfiguration-overhead axis)."""
+        ...
+
+    def set_kv_cache_policy(self, kp: Optional[KVCachePolicy]) -> None:
+        """Install (or clear, with None) the kv_cache-domain hooks governing
+        cross-request prefix retention and eviction over the paged KV pool —
+        the fourth evolvable surface (cache-memory axis)."""
+        ...
+
+    def set_recovery_policy(self, rp: Optional[RecoveryPolicy]) -> None:
+        """Install (or clear, with None) the recovery-domain hook deciding
+        salvage|recompute|shed per in-flight request when a replica dies
+        unexpectedly, plus the retry/backoff/straggler knobs — the fifth
+        evolvable surface (unplanned-failure containment)."""
+        ...
+
+
+# --------------------------------------------------------------------------- #
+# simulator-backed (closes the loop without hardware)
+# --------------------------------------------------------------------------- #
+@dataclass
+class SimBackend:
+    """Plan execution modelled by the roofline simulator.  Produces the same
+    interval totals as the pre-backend accounting path (metrics carry
+    ``measured=False`` and are never blended into fitness)."""
+    sim: Simulator
+    plan: Optional[Plan] = None
+    applied: List[Plan] = field(default_factory=list)
+    request_policy: Optional[RequestPolicy] = None
+    reconfig_policy: Optional[ReconfigPolicy] = None
+    kv_cache_policy: Optional[KVCachePolicy] = None
+    recovery_policy: Optional[RecoveryPolicy] = None
+
+    def set_request_policy(self, rp: Optional[RequestPolicy]) -> None:
+        # the roofline simulator has no per-request queue to reorder; the
+        # hooks are recorded so tests (and future sim upgrades) can see what
+        # the control plane pushed
+        self.request_policy = rp
+
+    def set_reconfig_policy(self, rp: Optional[ReconfigPolicy]) -> None:
+        # no live slots to migrate in the simulator; recorded for visibility
+        self.reconfig_policy = rp
+
+    def set_kv_cache_policy(self, kp: Optional[KVCachePolicy]) -> None:
+        # no page pool in the simulator either; recorded for visibility
+        self.kv_cache_policy = kp
+
+    def set_recovery_policy(self, rp: Optional[RecoveryPolicy]) -> None:
+        # no replicas to kill in the simulator; recorded for visibility
+        self.recovery_policy = rp
+
+    def apply_plan(self, plan: Plan, ctx: Ctx) -> ReconfigReport:
+        sim_cost = self.sim.reconfig_cost(self.plan, plan)
+        old_groups = set(self.plan.groups) if self.plan is not None else set()
+        new_groups = set(plan.groups)
+        self.plan = plan
+        self.applied.append(plan)
+        # same group-set diff semantics as EnginePool.reconfigure — dropping
+        # a model entirely is a change even if every surviving group matches
+        return ReconfigReport(
+            wall_s=0.0, simulated_s=sim_cost,
+            built=tuple(sorted(new_groups - old_groups, key=repr)),
+            reused=tuple(sorted(new_groups & old_groups, key=repr)),
+            removed=tuple(sorted(old_groups - new_groups, key=repr)))
+
+    def serve_interval(self, workloads: Sequence[Workload]) -> IntervalMetrics:
+        serve_s = self.sim.serve_cost(self.plan, list(workloads))
+        tokens = sum(w.batch * (w.prefill_len + w.decode_len) for w in workloads)
+        return IntervalMetrics(
+            requests=sum(w.batch for w in workloads), tokens=tokens,
+            wall_s=serve_s, tokens_per_s=tokens / serve_s if serve_s > 0 else 0.0,
+            simulated_serve_s=serve_s, measured=False)
+
+
+# --------------------------------------------------------------------------- #
+# real engine pool on the card
+# --------------------------------------------------------------------------- #
 @dataclass
 class TorchBackend:
     """Physical data plane on the card: one ``(cfg, model)`` stands in for
@@ -106,8 +215,13 @@ class TorchBackend:
     max_new_tokens: int = 6
     page_size: int = 16
     device: DeviceLike = None
+    # optional deterministic fault injection (serving/faults.FaultInjector):
+    # applied once per serve_interval, keyed on the interval index so the
+    # same injector seed replays the same faults at the same points
+    fault_injector: Optional[object] = None
     pool: EnginePool = field(init=False)
     _rid: int = 0
+    _interval_no: int = 0
     _shed_seen: int = 0
 
     def __post_init__(self):
@@ -143,9 +257,8 @@ class TorchBackend:
 
     @property
     def failure_count(self) -> int:
-        """Replica deaths so far (DataPlane reads this to trigger re-plans);
-        always 0 until the faults slice brings ``EnginePool.fail``."""
-        return 0
+        """Replica deaths so far (DataPlane reads this to trigger re-plans)."""
+        return self.pool.failures
 
     @property
     def breaker(self):
@@ -181,9 +294,19 @@ class TorchBackend:
                               arrival_time=time.monotonic())
                 if not self.pool.submit(w.model, req):
                     self.pool.add_backlog(w.model, req)
+        if self.fault_injector is not None:
+            # a step of real progress first, so kills land mid-decode, then
+            # the interval's scheduled faults
+            for eng in self.pool.engines:
+                if eng.waiting or eng.active:
+                    eng.step()
+            self.fault_injector.step(self.pool, self._interval_no)
+        self._interval_no += 1
         done = self.pool.run_until_drained()
         wall = time.monotonic() - t0
-        shed_total = self.pool.backlog_dropped
+        # shed = new drops this interval (recovery policy / retry budget /
+        # backlog cap), a loss the canary guard weighs against TTFT wins
+        shed_total = len(self.pool.shed_requests) + self.pool.backlog_dropped
         shed_new, self._shed_seen = shed_total - self._shed_seen, shed_total
         return measured_interval_metrics(done, wall, len(self.pool.backlog),
                                          shed=shed_new)

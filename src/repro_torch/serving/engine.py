@@ -54,6 +54,11 @@ class Request:
     # accounting carry for continuations of preempted/recomputed requests
     first_token_time: Optional[float] = None
     prior_generated: int = 0     # tokens already produced in earlier lives
+    # failure-recovery carry: how many times this request was requeued off a
+    # dead replica, and the capped-exponential-backoff eligibility time the
+    # pool's backlog flush honours (0.0 = immediately eligible)
+    retries: int = 0
+    not_before: float = 0.0
 
 
 @dataclass(frozen=True)
@@ -82,6 +87,25 @@ class MigrationCtx:
     generated: int                   # tokens produced so far (all lives)
     remaining: int                   # decode budget left
     position: int                    # next cache position
+
+    @property
+    def progress(self) -> float:
+        return self.generated / max(self.generated + self.remaining, 1)
+
+
+@dataclass(frozen=True)
+class FailureCtx:
+    """Typed view of one in-flight request on a replica that just died — the
+    argument the recovery-domain hook (``on_failure``) receives."""
+    rid: int
+    prompt_len: int
+    generated: int                   # tokens produced so far (all lives)
+    remaining: int                   # decode budget left
+    retries: int                     # times already requeued off a failure
+    exportable: bool                 # slot state can be salvaged right now
+    survivors: int                   # replicas left serving this model
+    free_slots: int                  # open slots across those survivors
+    queue_depth: int                 # pool backlog depth
 
     @property
     def progress(self) -> float:
@@ -125,7 +149,11 @@ class RequestSchedulingMixin:
 
     Host requirements: ``waiting``, ``active``, ``n_slots``,
     ``request_policy``, ``policy_errors``, ``preemptions``,
-    ``max_prompt_len``."""
+    ``max_prompt_len``; ``_now`` supplies the clock (wall for the real
+    engine, virtual for the shadow twin)."""
+
+    def _now(self) -> float:
+        return time.monotonic()
 
     def _on_slot_released(self, slot: int, st: "RequestState") -> None:
         """Hook fired when a request leaves its slot outside the normal
@@ -133,7 +161,7 @@ class RequestSchedulingMixin:
 
     def request_ctx_for(self, req: Request,
                         now: Optional[float] = None) -> RequestCtx:
-        now = time.monotonic() if now is None else now
+        now = self._now() if now is None else now
         return RequestCtx(rid=req.rid, prompt_len=len(req.prompt),
                           max_new_tokens=req.max_new_tokens,
                           age_s=max(now - req.arrival_time, 0.0),
@@ -146,6 +174,18 @@ class RequestSchedulingMixin:
                             generated=st.prior_generated + len(st.generated),
                             remaining=req.max_new_tokens - len(st.generated),
                             position=st.position)
+
+    def failure_ctx_for(self, st: RequestState, exportable: bool,
+                        survivors: int, free_slots: int,
+                        queue_depth: int) -> FailureCtx:
+        req = st.request
+        return FailureCtx(rid=req.rid, prompt_len=len(req.prompt),
+                          generated=st.prior_generated + len(st.generated),
+                          remaining=max(req.max_new_tokens
+                                        - len(st.generated), 0),
+                          retries=req.retries, exportable=exportable,
+                          survivors=survivors, free_slots=free_slots,
+                          queue_depth=queue_depth)
 
     # --- circuit-breaker plumbing (shared by engines and the pool) ----- #
     def _hook_open(self, domain: str) -> bool:
@@ -185,7 +225,7 @@ class RequestSchedulingMixin:
         if self.request_policy is None:
             take, self.waiting = self.waiting[:n], self.waiting[n:]
             return take
-        now = time.monotonic()
+        now = self._now()
         scored = sorted((self._score(req, now), i)
                         for i, req in enumerate(self.waiting))
         picked = sorted(i for _, i in scored[:n])
@@ -202,7 +242,7 @@ class RequestSchedulingMixin:
         if (rp is None or not rp.preempt or not self.waiting
                 or len(self.active) < self.n_slots):
             return
-        now = time.monotonic()
+        now = self._now()
         best_score = min(self._score(req, now) for req in self.waiting)
         victims = []
         for slot, st in self.active.items():
@@ -264,7 +304,12 @@ class Engine(RequestSchedulingMixin):
         self.kv_cache_policy = kv_cache_policy
         self.policy_errors = 0       # request-hook failures (hooks are advisory)
         self.preemptions = 0
-        self.breaker = None          # installed by the owning pool
+        # fault-tolerance state: ``breaker`` is installed by the owning pool;
+        # ``fault_slowdown`` is the injected straggler multiplier scaling the
+        # recorded step time (no real sleeps); the EMA feeds the pool's
+        # straggler detector
+        self.breaker = None
+        self.fault_slowdown = 1.0
         self.step_ema_s = 0.0
         self.health_samples = 0
         self.paged = bool(paged)
@@ -350,6 +395,10 @@ class Engine(RequestSchedulingMixin):
             next_tok = torch.argmax(logits[:, -1, :], dim=-1)
         self.dispatches += 1
         return next_tok
+
+    def release_devices(self) -> None:
+        """Return any exclusively-held devices when this replica retires.
+        A single-device engine owns nothing exclusively."""
 
     # ------------------------------------------------------------------ #
     def max_prompt_len(self, max_new_tokens: int = 1) -> int:
@@ -537,7 +586,8 @@ class Engine(RequestSchedulingMixin):
         cont = Request(req.rid, list(req.prompt) + list(st.generated),
                        remaining, req.eos_id, req.arrival_time,
                        first_token_time=st.first_token_time,
-                       prior_generated=st.prior_generated + len(st.generated))
+                       prior_generated=st.prior_generated + len(st.generated),
+                       retries=req.retries)   # retry budget survives migration
         cache = None
         if self.paged:
             if with_state:
@@ -762,7 +812,11 @@ class Engine(RequestSchedulingMixin):
         return produced
 
     def _record_step_time(self, dt: float) -> None:
-        """EMA of measured step wall-time (the pool's health signal)."""
+        """EMA of measured step wall-time (the pool's health signal), scaled
+        by the injected straggler multiplier: the fault model degrades the
+        observation, so the pool's detector sees the slowdown without real
+        sleeps."""
+        dt *= self.fault_slowdown
         if self.health_samples == 0:
             self.step_ema_s = dt
         else:

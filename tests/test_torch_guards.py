@@ -142,9 +142,10 @@ def test_ops_route_only_cpu_and_cuda():
 
 
 def test_unported_paths_raise_not_implemented():
-    """Fault handling and sharded replicas still raise; every config of the
-    registry, whisper's encoder-decoder included, builds its model and its
-    contiguous cache."""
+    """Sharded replicas still raise; ``fail`` (ported with the faults
+    slice) refuses an engine the pool does not hold, as the reference's
+    does; every config of the registry, whisper's encoder-decoder included,
+    builds its model and its contiguous cache."""
     cfg = get_config("qwen2-1.5b").reduced()
     model = lm.init_params(cfg, device="cpu")
     for arch in ("gemma2-9b", "zamba2-7b", "whisper-tiny"):
@@ -153,7 +154,7 @@ def test_unported_paths_raise_not_implemented():
         lm.init_params(served, device="cpu")
     eng = Engine(cfg, model, n_slots=1, max_seq_len=32, device="cpu")
     backend = TorchBackend(cfg, model, device="cpu")
-    with pytest.raises(NotImplementedError, match="faults"):
+    with pytest.raises(ValueError, match="not in this pool"):
         backend.pool.fail(eng)
     with pytest.raises(NotImplementedError, match="sharded"):
         backend.apply_plan(Plan((ReplicaGroup("m", "H100-80G", 1, 2, 1, pp=2),)),
