@@ -8,8 +8,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
   2. build: the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
      source, in parallel; ptxas registers, shared memory and spills);
   3. each kernel against its plain PyTorch version at the main paths'
-     full-width shapes (bf16 to 2e-2, f32 to 2e-5; ``moe_gmm`` at
-     mixtral-8x7b's and mixtral-8x22b's expert widths; flash attention also on
+     full-width shapes and phase 4n's shard shapes (bf16 to 2e-2, f32 to
+     2e-5; ``moe_gmm`` at mixtral-8x7b's and mixtral-8x22b's expert
+     widths; flash attention also on
      page pools through a scattered page table; decode over group sizes
      4/6/8, head dims 64/128, edge lengths and windows), with the kernel's,
      the plain version's and one PyTorch library call's times (CUDA events,
@@ -28,13 +29,13 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      4.  qwen2-1.5b (28 layers, bf16) on the paged pool through
          ``TorchBackend``, 2 replicas × 8 slots, with a shared-prefix wave
          and a drain resize to half the batch;
-     4b. mamba2-1.3b (24 of 48 layers, bf16) on the contiguous state cache
+     4b. mamba2-1.3b (12 of 48 layers, bf16) on the contiguous state cache
          through ``TorchBackend``, 2 replicas × 8 slots, 16 requests;
      4c. qwen2-1.5b with ``paged=False``, one engine × 8 slots;
      4d. a ``migrate`` resize with requests in flight: paged → paged and
          contiguous → paged qwen2-1.5b, contiguous → contiguous mamba2-1.3b,
          tokens held to the same requests served undisturbed;
-     4e. mixtral-8x7b (8 of 32 layers, bf16) on the paged pool through
+     4e. mixtral-8x7b (4 of 32 layers, bf16) on the paged pool through
          ``TorchBackend``, 1 replica × 8 slots, once per MoE implementation
          (dense mix, capacity dispatch);
      4f. qwen1.5-110b (4 of 80 layers), mixtral-8x22b (4 of 56, dense mix)
@@ -46,12 +47,12 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
          ring (4096 rows) the prompts cross and decode wraps, the same
          requests on the paged pool (the window binds), and migrations
          ring → paged and paged → ring in flight;
-     4i. gemma2-9b (8 of 42 layers: local/global pairs, softcaps, D 256)
+     4i. gemma2-9b (4 of 42 layers: local/global pairs, softcaps, D 256)
          on a contiguous engine × 8 slots, profiled, then 8 → 4-slot
          migrations with 4 requests in flight; then cut to one pair with
          prompts past the local layers' 4096-row ring, each served token
          held to the f32 twin's maximum;
-     4j. zamba2-7b (21 of 81 slots: 3 groups of 5 Mamba-2 layers and the
+     4j. zamba2-7b (15 of 81 slots: 2 groups of 5 Mamba-2 layers and the
          shared attention block at D 112, then 3 tail layers) on a
          contiguous engine × 8 slots, profiled, then 8 → 4-slot migrations;
      4k. whisper-tiny whole (4 encoder and 4 decoder layers, D 64) on a
@@ -73,6 +74,15 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
          control-plane cycle (analytic rung, shadow replay) after the
          fourth, then the planted ``BAD_REQUEST_SOURCE`` canaried over 2
          more and rolled back; every interval measured, no page leaks;
+     4n. sharded and pipelined replicas on 4 logical devices of the card:
+         qwen2-1.5b whole on paged engines × 8 slots at tp 1, tp 2 (the
+         head-sharded pool), tp 4 (the recorded KV-head fallback), dp 2 ×
+         tp 2, pp 2, pp 4 and pp 2 × tp 2, each token held to tp 1's or a
+         judged bf16 tie, launches per decode dispatch L·shards; a re-cut
+         pp 2 → pp 4 → tp 2 → plain in flight; a ``TorchBackend`` over the
+         logical set (engines counted by class, the short-allocator degrade
+         counted); mixtral-8x7b (2 of 32 layers) tp 2 → EP held to the
+         dense mix;
   5. the port on the card (bf16, kernels) against the port on the CPU (f32,
      plain versions) for one prefill chunk and 8 decode steps at full
      width: qwen2-1.5b, mamba2-1.3b and minicpm3-4b at 2 layers,
@@ -751,6 +761,99 @@ def check_kernels(torch):
     rows["moe_gmm"], rows["moe_gmm_shapes"], rows["moe_gmm_8x22b"] = check_moe_gmm(torch, gen)
     rows["device_ms"]["moe_gmm"] = rows["moe_gmm_shapes"][8]["device_ms"]
     return rows
+
+
+def check_shard_kernels(torch) -> dict:
+    """Phase 3 at the shard shapes of phase 4n (bf16, each held to its plain
+    version, with event and device ms per call): qwen2-1.5b's paged decode
+    and prefill flash attention on one tp-2 shard (H 6, Hkv 1, D 128) and on
+    one tp-4 shard at its KV-head fallback (3 query heads against one KV
+    head of the replicated 2-head pool, read through the row table of the
+    page-size-1 view); and the grouped SwiGLU of one EP shard of
+    mixtral-8x7b (E 4 of 8, D 4096, F 14336) at C 8 (decode, 8 lanes) and
+    C 64 (one prefill chunk), x shared by the experts."""
+    from repro_torch.kernels.flash_attention import kernel as fa_k, ref as fa_r
+    from repro_torch.kernels.flash_decode import kernel as fd_k, ops as fd_o, ref as fd_r
+    from repro_torch.kernels.moe_gmm import kernel as moe_k, ref as moe_r
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    bf = torch.bfloat16
+    B, D, PAGE, NPT = 8, 128, 16, 35
+    n_pages = 1 + (B + 2) * NPT
+    kl = torch.tensor([257, 262, 266, 270, 275, 279, 284, 288], device=dev,
+                      dtype=torch.int32)
+    pt = (torch.randperm(n_pages - 1, device=dev, generator=gen)[:B * NPT] + 1
+          ).reshape(B, NPT).int()
+    out = {}
+
+    def randn(*shape):
+        return torch.randn(shape, device=dev, generator=gen).to(bf)
+
+    def record(key, text, call, plain, name, nbytes, flops):
+        err = max_err(torch, call(), plain(), "bfloat16")
+        ms = time_ms(torch, lambda i: call(), 1)
+        dms = device_ms(torch, lambda i: call(), 1, name)
+        pms = time_ms(torch, lambda i: plain(), 1, iters=10)
+        b_ms, b_by = bound(nbytes, flops, "bfloat16")
+        out[key] = dict(max_abs_err=err, ms=ms, device_ms=dms, plain_ms=pms,
+                        bound_ms=b_ms, bound_by=b_by)
+        print(f"[kernels] shard shape: {text}: max_abs_err={err:.3e} (tol "
+              f"{TOL['bfloat16']}); {ms:.4f} ms per call (device {dms:.4f} ms), plain "
+              f"{pms:.4f} ms, bound {b_ms:.5f} ms by {b_by}")
+
+    keys = int(kl.sum())
+    # tp 2: one shard's pool slice (Hkv 1) and its 6 query heads
+    kp1, vp1 = randn(n_pages, PAGE, 1, D), randn(n_pages, PAGE, 1, D)
+    q6 = randn(B, 6, D)
+    record("paged_flash_decode tp2", f"paged_flash_decode B={B} H=6 Hkv=1 D={D} "
+           f"page={PAGE} kv_len={kl.tolist()} (qwen2-1.5b, one tp-2 shard)",
+           lambda: fd_k.paged_flash_decode(q6, kp1, vp1, pt, kl),
+           lambda: fd_r.paged_flash_decode_ref(q6, kp1, vp1, pt, kl), "decode",
+           2 * keys * D * 2 + 2 * B * 6 * D * 2, 4.0 * keys * 6 * D)
+    # tp 4: 3 query heads of KV head 1 of the replicated 2-head pool
+    kp2, vp2 = randn(n_pages, PAGE, 2, D), randn(n_pages, PAGE, 2, D)
+    q3 = randn(B, 3, D)
+    rows = fd_o.kv_head_rows(pt, PAGE, 2, 1)
+    kv, vv = fd_o.head_view(kp2), fd_o.head_view(vp2)
+    one = lambda t: t[:, :, 1:2].contiguous()
+    record("paged_flash_decode tp4", f"paged_flash_decode B={B} 3 query heads against "
+           f"KV head 1 of a replicated Hkv=2 pool through its row table (page-size-1 "
+           f"view, {rows.shape[1]} rows a lane; qwen2-1.5b, one tp-4 shard)",
+           lambda: fd_k.paged_flash_decode(q3, kv, vv, rows, kl),
+           lambda: fd_r.paged_flash_decode_ref(q3, one(kp2), one(vp2), pt, kl), "decode",
+           2 * keys * D * 2 + 2 * B * 3 * D * 2, 4.0 * keys * 3 * D)
+    # prefill: a 64-token chunk of one lane at positions 448..511
+    klp = torch.tensor([512], device=dev, dtype=torch.int32)
+    q6c, q3c = randn(1, 64, 6, D), randn(1, 64, 3, D)
+    pkeys = 64 * (512 - 32)                     # causal keys of the chunk's queries
+    record("flash_attention tp2", "flash_attention one lane, a 64-token chunk at "
+           "kv_len 512, H=6 Hkv=1 on the paged pool (one tp-2 shard)",
+           lambda: fa_k.flash_attention(q6c, kp1, vp1, True, None, None, klp, pt[:1]),
+           lambda: fa_r.flash_attention_ref(q6c, kp1, vp1, True, None, None, klp, pt[:1]),
+           "flash_attention", 2 * 512 * D * 2 + 2 * 64 * 6 * D * 2, 4.0 * pkeys * 6 * D)
+    record("flash_attention tp4", "flash_attention one lane, a 64-token chunk at "
+           "kv_len 512, 3 query heads against KV head 1 of the replicated pool through "
+           "its row table (one tp-4 shard)",
+           lambda: fa_k.flash_attention(q3c, kv, vv, True, None, None, klp, rows[:1]),
+           lambda: fa_r.flash_attention_ref(q3c, one(kp2), one(vp2), True, None, None, klp,
+                                            pt[:1]),
+           "flash_attention", 2 * 512 * D * 2 + 2 * 64 * 3 * D * 2, 4.0 * pkeys * 3 * D)
+    del kp1, vp1, kp2, vp2
+    # one EP shard of mixtral-8x7b: 4 experts
+    E, DM, FF = 4, 4096, 14336
+    w = [torch.empty(shape, device=dev).uniform_(-sc, sc, generator=gen).to(bf)
+         for shape, sc in (((E, DM, FF), DM ** -0.5), ((E, DM, FF), DM ** -0.5),
+                           ((E, FF, DM), FF ** -0.5))]
+    for C in (8, 64):
+        x = randn(1, C, DM).expand(E, C, DM)
+        record(f"moe_gmm E4 C{C}", f"moe_gmm E={E} C={C} D={DM} F={FF}, x shared "
+               f"(mixtral-8x7b, one EP shard of tp 2)",
+               lambda: moe_k.moe_gmm(x, *w), lambda: moe_r.moe_gmm_ref(x, *w), "moe_gmm",
+               C * DM * 2 + 3 * E * DM * FF * 2 + E * C * DM * 2, 2.0 * 3 * E * C * DM * FF)
+    del w
+    torch.cuda.empty_cache()
+    return out
 
 
 def check_whisper_shapes(torch, rows, randn, timed, text, fa_plan):
@@ -1730,7 +1833,7 @@ def param_count(cfg) -> int:
 
 
 def serve_mixtral(torch, card: str):
-    """Phase 4e: mixtral-8x7b at full width and 8 of its 32 layers on the
+    """Phase 4e: mixtral-8x7b at full width and 4 of its 32 layers on the
     paged pool through ``TorchBackend``, 1 replica × 8 slots, once per MoE
     implementation: 8 requests of 128–512-token prompts, half sharing a
     128-token prefix, in two waves of 4, 32 new tokens each."""
@@ -1746,7 +1849,7 @@ def serve_mixtral(torch, card: str):
     from repro_torch.serving.engine import Request
 
     full = get_config("mixtral-8x7b")
-    cfg = dataclasses.replace(full, n_layers=8)
+    cfg = dataclasses.replace(full, n_layers=4)
     L, V, MAX_NEW, model_name = cfg.n_layers, cfg.vocab_size, 32, cfg.name
     t0 = time.monotonic()
     model = lm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
@@ -2812,6 +2915,311 @@ def serve_autopoiesis(torch, card: str) -> dict:
     return out
 
 
+def serve_sharded(torch, card: str) -> dict:
+    """Phase 4n: sharded and pipelined replicas on 4 logical devices (on
+    ``cuda:0`` with one card, on distinct cards otherwise).  qwen2-1.5b
+    whole (28 layers, d 1536, H 12, Hkv 2, D 128, bf16, seeded weights)
+    on paged engines × 8 slots (page 16): tp 1 (the plain engine every run
+    is held to), tp 2 (the head-sharded pool and decode), tp 4 (the
+    recorded ``kv_heads`` fallback: replicated pool, row-table decode),
+    dp 2 × tp 2, pp 2, pp 4 and pp 2 × tp 2 on stage submeshes.  Each serves
+    8 requests of 128–512 tokens with 16 new (prefill chunks up to 256
+    tokens), then 2 repeats with 4 new (prefix hits),
+    with the decode steps of 8 active lanes profiled (host wall, device
+    busy, launches per dispatch).  Tokens equal the plain engine's or
+    differ first at a bf16 tie judged by the f32 twin (phase 4d's rule);
+    full budgets, no leaked page, prefix hits.  Then a mid-decode re-cut
+    pp 2 → pp 4 → tp 2 → plain; mixtral-8x7b (2 of 32 layers, full width)
+    tp 2 → EP over 4 experts a shard, held to the dense mix (f32 tokens,
+    bf16 layer outputs); a ``TorchBackend`` over the logical set building
+    a ShardedEngine and a PipelinedEngine, and degrading (counted) only
+    when the allocator is short."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.plan import Plan, ReplicaGroup, Workload, default_stage_cuts
+    from repro_torch.distributed.expert_parallel import ep_moe_mix
+    from repro_torch.launch.mesh import logical_devices
+    from repro_torch.models import lm
+    from repro_torch.models.layers import moe_dense_mix
+    from repro_torch.serving.backend import TorchBackend, measured_interval_metrics
+    from repro_torch.serving.engine import Engine, Request
+    from repro_torch.serving.sharded import (PipelinedEngine, ShardedEngine,
+                                             SubmeshAllocator)
+
+    cfg = get_config("qwen2-1.5b")
+    L, MAX_NEW, REPEAT_NEW = cfg.n_layers, 16, 4
+    # prefill chunks of up to 256 tokens: a 128–512-token prompt takes 1–5
+    # dispatches (up to 8 at 64), each running every shard's layers
+    KW = dict(n_slots=8, max_seq_len=560, page_size=16, max_prefill_chunk=256)
+    devs = logical_devices(4)
+    where = sorted({str(d.device) for d in devs})
+    print(f"[sharded] 4 logical devices on {', '.join(where)} "
+          f"({'one card: shards run at shard shapes, no interconnect' if len(where) == 1 else 'distinct cards'})")
+    model = lm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    truth = f32_twin(torch, cfg, model)
+    rng = np.random.default_rng(23)
+    prompts = {rid: random_prompt(rng, cfg.vocab_size, 128, 512) for rid in range(8)}
+    prompts.update({8: prompts[0], 9: prompts[1]})          # the repeats
+    total = {}
+
+    def add(c):
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+
+    def serve(eng, tag: str, shards: int):
+        """Both waves on ``eng``; the decode window's launches per dispatch
+        are checked against ``shards`` per layer."""
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        d0 = eng.dispatches
+        for rid in range(8):
+            eng.submit(Request(rid=rid, prompt=list(prompts[rid]), max_new_tokens=MAX_NEW,
+                               arrival_time=time.monotonic()))
+        eng.step()                                  # 8 admissions + one decode
+        need(len(eng.active) == 8, f"{tag}: {len(eng.active)} lanes active after admission")
+        add(read_launches())
+        zero_launches()
+        wall, n_disp, pwall, busy, groups = profile_steps(torch, eng, 2)
+        win = read_launches()
+        add(win)
+        zero_launches()
+        need(win["paged_flash_decode"] == L * shards * n_disp * 2
+             and win["rmsnorm"] == (2 * L + 1) * shards * n_disp * 2
+             and win["flash_attention"] == 0,
+             f"{tag}: decode window launches {win} over {2 * n_disp} dispatches, want "
+             f"{L}·{shards} decodes and {2 * L + 1}·{shards} norms a dispatch")
+        eng.run_until_drained()
+        for rid in (8, 9):
+            eng.submit(Request(rid=rid, prompt=list(prompts[rid]), max_new_tokens=REPEAT_NEW,
+                               arrival_time=time.monotonic()))
+        eng.run_until_drained()
+        torch.cuda.synchronize()
+        wall_all = time.monotonic() - t0
+        add(read_launches())
+        got = {st.request.rid: list(st.generated) for st in eng.finished}
+        need(sorted(got) == list(range(10))
+             and all(len(g) == (MAX_NEW if rid < 8 else REPEAT_NEW) for rid, g in got.items()),
+             f"{tag}: finished {sorted(got)} with budgets {[len(g) for g in got.values()]}")
+        hits = eng.prefix_index.hits
+        need(hits >= 2, f"{tag}: {hits} prefix hits for the 2 repeats")
+        leaked = eng.release_all_pages()
+        need(leaked == 0, f"{tag}: {leaked} pages leaked")
+        met = measured_interval_metrics(eng.finished, wall_all)
+        idle = 1 - busy / pwall
+        gtxt = ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in
+                         sorted(groups.items(), key=lambda kv: -kv[1]))
+        print(f"[sharded] {tag}: decode, 8 active lanes: {wall * 1e3 / n_disp:.2f} ms per "
+              f"dispatch (host wall); profiled repeat: device busy {busy * 1e3:.2f} ms of "
+              f"{pwall * 1e3:.2f} ms (idle {100 * idle:.1f}%); kernels: {gtxt}; launches a "
+              f"dispatch: paged_flash_decode {win['paged_flash_decode'] // (2 * n_disp)} "
+              f"({L} layers × {shards} shard{'s' if shards > 1 else ''}), rmsnorm "
+              f"{win['rmsnorm'] // (2 * n_disp)}; "
+              f"whole run: {met_text(met, wall_all, eng.dispatches - d0)}, prefix hits "
+              f"{hits} [{card}]")
+        return got, dict(metrics_of(met, eng.dispatches - d0), decode_ms_per_dispatch=
+                         wall * 1e3 / n_disp, device_busy_ms=busy * 1e3 / n_disp,
+                         idle=idle, prefix_hits=hits, wall_s=wall_all,
+                         decode_launches_per_dispatch={k: v / (2 * n_disp)
+                                                       for k, v in win.items()})
+
+    judged = {}
+
+    def hold(tag: str, got: dict, want: dict) -> dict:
+        """Tokens equal ``want``'s or differ first at a judged bf16 tie (a
+        tie another run already judged is not replayed again)."""
+        equal, ties = 0, []
+        for rid in sorted(want):
+            a, b = got[rid], want[rid]
+            if a == b:
+                equal += 1
+                continue
+            i = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+            seq = prompts[rid] + b[:i]
+            for t in (a[i], b[i]):
+                key = (tuple(seq), t)
+                if key not in judged:
+                    judged[key] = judge_tie(torch, truth, seq, rid, t, {},
+                                            f"{tag} request {rid}")
+            gap = max(judged[tuple(seq), t] for t in (a[i], b[i]))
+            ties.append(gap)
+            print(f"[sharded] {tag}: request {rid} first differs at token {i}: a bf16 tie "
+                  f"({gap:.4e} below the f32 twin's maximum)")
+        return dict(equal=equal, ties=len(ties))
+
+    alloc = SubmeshAllocator(devs)
+    pipe = lambda pp, shape: PipelinedEngine(
+        cfg, model, default_stage_cuts(L, pp), stage_meshes=alloc.alloc_stages(pp, shape),
+        allocator=alloc, **KW)
+    runs = [("tp 1", lambda: Engine(cfg, model, device="cuda", **KW), 1),
+            ("tp 2", lambda: ShardedEngine(cfg, model, alloc.alloc((1, 2)),
+                                           allocator=alloc, **KW), 2),
+            ("tp 4", lambda: ShardedEngine(cfg, model, alloc.alloc((1, 4)),
+                                           allocator=alloc, **KW), 4),
+            ("dp 2 x tp 2", lambda: ShardedEngine(cfg, model, alloc.alloc((2, 2)),
+                                                  allocator=alloc, **KW), 4),
+            ("pp 2", lambda: pipe(2, (1, 1)), 1),
+            ("pp 4", lambda: pipe(4, (1, 1)), 1),
+            ("pp 2 x tp 2", lambda: pipe(2, (1, 2)), 2)]
+    out, want = {"runs": {}}, None
+    for tag, build, shards in runs:
+        eng = build()
+        if isinstance(eng, ShardedEngine):
+            need(eng.paged_kernel_fused == (eng.tp == 2), f"{tag}: fused {eng.paged_kernel_fused}")
+            recs = [f for f in eng.decision.fallbacks if f.path == "paged_kernel"]
+            need(bool(recs) == (eng.tp == 4), f"{tag}: fallback records {eng.decision.fallbacks}")
+        per_dev = eng.bytes_per_device() if hasattr(eng, "bytes_per_device") else {}
+        got, row = serve(eng, tag, shards)
+        if want is None:
+            want = got
+        else:
+            row.update(hold(tag, got, want))
+        if per_dev:
+            print(f"[sharded] {tag}: bytes each logical device holds (weights by the "
+                  f"layout + its KV pool): " + ", ".join(
+                      f"device {i} {n / 2**20:.1f} MiB" for i, n in sorted(per_dev.items())))
+            row["bytes_per_device"] = per_dev
+        eng.release_devices()
+        out["runs"][tag] = row
+        del eng
+        torch.cuda.empty_cache()
+    need(alloc.free_devices == 4, "a submesh leaked")
+
+    # mid-decode re-cut: pp 2 -> pp 4 -> tp 2 -> plain, 8 requests in flight
+    zero_launches()
+    t0 = time.monotonic()
+    eng = pipe(2, (1, 1))
+    for rid in range(8):
+        eng.submit(Request(rid=rid, prompt=list(prompts[rid]), max_new_tokens=MAX_NEW))
+    hops = [("pp 4", lambda: pipe(4, (1, 1))),
+            ("tp 2", lambda: ShardedEngine(cfg, model, alloc.alloc((1, 2)),
+                                           allocator=alloc, **KW)),
+            ("plain", lambda: Engine(cfg, model, device="cuda", **KW))]
+    for _ in range(3):
+        eng.step()
+    for tag, build in hops:
+        exports = eng.export_active()
+        need(len(exports) == 8 and eng.release_all_pages() == 0,
+             f"re-cut to {tag}: {len(exports)} exports")
+        eng.release_devices()
+        eng = build()
+        need(all(eng.install_active(e) for e in exports), f"re-cut to {tag}: install refused")
+        for _ in range(2):
+            eng.step()
+    eng.run_until_drained()
+    got = {st.request.rid: list(st.generated) for st in eng.finished}
+    need(sorted(got) == list(range(8)) and all(len(g) == MAX_NEW for g in got.values()),
+         "re-cut: requests lost or cut short")
+    need(eng.release_all_pages() == 0, "re-cut: pages leaked")
+    add(read_launches())
+    out["recut"] = hold("re-cut pp 2 -> pp 4 -> tp 2 -> plain", got,
+                        {r: want[r] for r in range(8)})
+    out["recut"]["wall_s"] = time.monotonic() - t0
+    print(f"[sharded] re-cut pp 2 -> pp 4 -> tp 2 -> plain, 8 requests in flight: "
+          f"{out['recut']['equal']} with the plain engine's tokens, "
+          f"{out['recut']['ties']} judged ties, no page leaked, all devices returned "
+          f"({alloc.free_devices} free) [{card}]")
+    need(alloc.free_devices == 4, "re-cut: a submesh leaked")
+    del eng
+
+    # the backend over the logical set
+    be = TorchBackend(cfg, model, devices=devs, max_seq_len=560, slots_cap=4,
+                      max_replicas_per_group=1, requests_per_model=4, device="cuda")
+    g_tp2 = ReplicaGroup(cfg.name, "H100-80G", 2, 4, 1)
+    g_pp2 = ReplicaGroup(cfg.name, "H100-80G", 1, 4, 1, pp=2)
+    zero_launches()
+    be.apply_plan(Plan((g_tp2, g_pp2)), None)
+    classes = sorted(type(e).__name__ for e in be.pool.engines)
+    need(classes == ["PipelinedEngine", "ShardedEngine"] and be.allocator.shortfalls == 0,
+         f"backend built {classes}")
+    met = be.serve_interval([Workload(cfg.name, 4, 16384, 1024)])
+    need(met.measured and met.requests == 4 and math.isfinite(met.tpot_s),
+         f"backend interval {met}")
+    g_wide = ReplicaGroup(cfg.name, "H100-80G", 2, 4, 1, dp=2)      # no room left
+    be.apply_plan(Plan((g_tp2, g_pp2, g_wide)), None)
+    classes2 = sorted(type(e).__name__ for e in be.pool.engines)
+    need(classes2 == ["Engine", "PipelinedEngine", "ShardedEngine"]
+         and be.allocator.shortfalls == 1, f"backend built {classes2}")
+    need(all(e.release_all_pages() == 0 for e in be.pool.engines), "backend: pages leaked")
+    add(read_launches())
+    print(f"[sharded] TorchBackend over the 4 logical devices: a tp-2 and a pp-2 group "
+          f"built {classes}; {met.requests} requests measured, TTFT p50 "
+          f"{met.ttft_p50_s * 1e3:.1f} ms, TPOT {met.tpot_s * 1e3:.2f} ms; adding a "
+          f"dp 2 × tp 2 group with no device free built a plain Engine "
+          f"(allocator shortfalls {be.allocator.shortfalls}) [{card}]")
+    out["backend"] = dict(classes=classes, degraded=be.allocator.shortfalls,
+                          ttft_p50_ms=met.ttft_p50_s * 1e3, tpot_ms=met.tpot_s * 1e3)
+    del be, model, truth
+    torch.cuda.empty_cache()
+
+    # expert parallelism: mixtral-8x7b at 2 of 32 layers, full width
+    mcfg = dataclasses.replace(get_config("mixtral-8x7b"), n_layers=2)
+    mb = lm.init_params(mcfg, torch.Generator(device="cuda").manual_seed(1), "cuda")
+    mesh = alloc.alloc((1, 2))
+    ffn = mb.layers[0].ffn
+    errs = []
+    for T in (8, 64):
+        x = torch.randn((1, T, mcfg.d_model), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(T)).to(torch.bfloat16)
+        zero_launches()
+        ep = ep_moe_mix(ffn, mcfg, x, mesh)
+        need(read_launches()["moe_gmm"] == 2, "ep_moe_mix: one moe_gmm launch a shard")
+        errs.append(max_err(torch, ep, moe_dense_mix(ffn, mcfg, x), "bfloat16",
+                            MOE_TOL["bfloat16"]))
+    alloc.release(mesh)
+    print(f"[sharded] mixtral-8x7b EP layer (2 shards of 4 experts) against the dense "
+          f"mix, bf16, 8 and 64 tokens: max_abs_err {errs[0]:.3e} / {errs[1]:.3e} "
+          f"(tol {MOE_TOL['bfloat16']})")
+    m32cfg, m32 = f32_twin(torch, mcfg, mb)
+    del mb
+    torch.cuda.empty_cache()
+    mrng = np.random.default_rng(29)
+    mprompts = {rid: random_prompt(mrng, mcfg.vocab_size, 128, 512) for rid in range(8)}
+
+    def serve_m(eng):
+        for rid, p in mprompts.items():
+            eng.submit(Request(rid=rid, prompt=list(p), max_new_tokens=MAX_NEW))
+        eng.run_until_drained()
+        need(eng.release_all_pages() == 0, "mixtral: pages leaked")
+        return {st.request.rid: list(st.generated) for st in eng.finished}
+
+    dense = serve_m(Engine(m32cfg, m32, device="cuda", **KW))
+    zero_launches()
+    eng = ShardedEngine(m32cfg, m32, alloc.alloc((1, 2)), allocator=alloc, **KW)
+    need(eng.sharding_policy.ep and eng.stages[0].ep, "mixtral tp 2 did not pick EP")
+    d0 = eng.dispatches
+    got = serve_m(eng)
+    mcounts = read_launches()
+    add(mcounts)
+    need(mcounts["moe_gmm"] == mcfg.n_layers * 2 * (eng.dispatches - d0),
+         f"EP launches {mcounts} over {eng.dispatches - d0} dispatches")
+    eng.release_devices()
+    equal, ties = 0, 0
+    for rid in sorted(dense):
+        a, b = got[rid], dense[rid]
+        if a == b:
+            equal += 1
+            continue
+        i = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+        lg = served_logits(torch, m32cfg, m32, mprompts[rid] + b[:i], [b[i]])[0]
+        gap = abs(float(lg[b[i]]) - float(lg[a[i]]))
+        tol = TOL["float32"]
+        need(gap <= tol + tol * abs(float(lg[b[i]])),
+             f"mixtral EP request {rid}: token {i} differs from the dense mix by {gap:.3e}")
+        ties += 1
+    print(f"[sharded] mixtral-8x7b (2 of 32 layers, f32) tp 2 → EP, 8 requests of "
+          f"128–512 tokens, {MAX_NEW} new: {equal} with the dense mix's tokens, {ties} "
+          f"f32 ties; moe_gmm {mcounts['moe_gmm']} launches ({mcfg.n_layers} layers × "
+          f"2 shards a dispatch) [{card}]")
+    out["ep"] = dict(equal=equal, ties=ties, layer_max_abs_err=errs,
+                     launches=mcounts)
+    del eng, m32
+    torch.cuda.empty_cache()
+    need(alloc.free_devices == 4, "a submesh leaked")
+    out["launches"] = total
+    return out
+
+
 # --------------------------------------------------------------------------- #
 # phase 5: port on the card vs port on the CPU
 # --------------------------------------------------------------------------- #
@@ -3047,6 +3455,7 @@ def main(argv=None) -> int:
     # phase 3
     t3 = time.monotonic()
     rows = check_kernels(torch)
+    rows["shard_kernels"] = check_shard_kernels(torch)
     print(f"[time] phase 3: {time.monotonic() - t3:.1f}s")
     print(json.dumps({"flash_attention_serving": rows["flash_attention_serving"],
                       "decode_serving": rows["decode_serving"],
@@ -3070,9 +3479,12 @@ def main(argv=None) -> int:
 
     counts, main_metrics = timed("4", serve_main_path)
     # mamba2 at 24 of 48 layers, the ring at 1 and gemma2's ring cut at one
-    # pair keep the command under 555 s with whisper's phases on slower
-    # hosts (at 48 / 2 / 2 it took 519-571 s as hosts varied)
-    ssm_counts, ssm_metrics = timed("4b", serve_mamba2, 24)
+    # pair kept the command under 555 s with whisper's phases on slower
+    # hosts (at 48 / 2 / 2 it took 519-571 s as hosts varied); phase 4n's
+    # sharded runs (84 s on a slow host, the command 549.6 s) cut mamba2 to
+    # 12 layers, mixtral in 4e to 4, gemma2 in 4i to 4 and zamba2 in 4j to
+    # 15 slots (28.8, 36.1, 40.0 and 18.2 s at 24 / 8 / 8 / 21)
+    ssm_counts, ssm_metrics = timed("4b", serve_mamba2, 12)
     contig_counts, contig_metrics = timed("4c", serve_contiguous_qwen2)
     migration = timed("4d", live_migration)
     mixtral = timed("4e", serve_mixtral)
@@ -3090,11 +3502,12 @@ def main(argv=None) -> int:
     # zamba2 at 21 of 81 slots (3 groups + the 3-layer tail), cut as
     # minicpm3 and the ring were (4i took 85 s and 4j 61 s whole; 62 s and
     # 27 s at 16 layers and 33 slots, the command 519 s)
-    gemma2 = timed("4i", serve_gemma2, get_config("gemma2-9b"), 8)
-    zamba2 = timed("4j", serve_zamba2, get_config("zamba2-7b"), 21)
+    gemma2 = timed("4i", serve_gemma2, get_config("gemma2-9b"), 4)
+    zamba2 = timed("4j", serve_zamba2, get_config("zamba2-7b"), 15)
     whisper = timed("4k", serve_whisper, get_config("whisper-tiny"))
     faults = timed("4l", serve_faults)
     autopoiesis = timed("4m", serve_autopoiesis)
+    sharded = timed("4n", serve_sharded)
     # whisper's main path adds its launches to rows 2-4: serving, forward
     # with frames and the encoder-filled steps, each counted from zero,
     w_counts = [whisper["launches"], whisper["forward_launches"],
@@ -3102,6 +3515,8 @@ def main(argv=None) -> int:
     # and the paged qwen2 paths of 4l (both faulted pools) and 4m to rows 1-3
     q_counts = [faults["salvage"]["launches"], faults["deny-export"]["launches"],
                 autopoiesis["launches"]]
+    # and the sharded and pipelined paths of 4n (qwen2 and the EP mixtral)
+    q_counts.append(sharded["launches"])
     launches = {"paged_flash_decode": counts["paged_flash_decode"]
                 + sum(c["paged_flash_decode"] for c in q_counts),
                 "flash_attention": counts["flash_attention"]
@@ -3110,7 +3525,8 @@ def main(argv=None) -> int:
                 + sum(c["rmsnorm"] for c in w_counts + q_counts),
                 "flash_decode": contig_counts["flash_decode"]
                 + sum(c["flash_decode"] for c in w_counts),
-                "moe_gmm": mixtral["dense"]["launches"]["moe_gmm"],
+                "moe_gmm": mixtral["dense"]["launches"]["moe_gmm"]
+                + sharded["launches"]["moe_gmm"],
                 "ssd_scan": ssm_counts["ssd_scan"]}
     need(all(n > 0 for n in launches.values()), f"a kernel never launched: {launches}")
     # phase 5
@@ -3153,7 +3569,8 @@ def main(argv=None) -> int:
                       "contiguous_qwen2": contig_metrics, "migration": migration,
                       "mixtral": mixtral, "registry": registry, "mla": mla, "ring": ring,
                       "gemma2": gemma2, "zamba2": zamba2, "whisper": whisper,
-                      "faults": faults, "autopoiesis": autopoiesis,
+                      "faults": faults, "autopoiesis": autopoiesis, "sharded": sharded,
+                      "shard_kernels": rows["shard_kernels"],
                       "whisper_kernels": rows["whisper"], "head_dims": rows["head_dims"],
                       "moe_gmm_shapes": rows["moe_gmm_shapes"],
                       "moe_gmm_8x22b": rows["moe_gmm_8x22b"],

@@ -3,8 +3,9 @@
 Only the subset the port reads: ``moe_impl`` — ``"dense"`` (every expert on
 every token, mixed by the gates; the default, as in the JAX package) or
 ``"dispatch"`` (capacity-based scatter dispatch) — with the same
-environment variable, ``REPRO_MOE_IMPL``.  JAX reads its flags when a step
-is traced; the port runs eagerly and reads them on every call.
+environment variable, ``REPRO_MOE_IMPL``; and the sharded routes
+``ep_shard`` and ``paged_shard``.  JAX reads its flags when a step is
+traced; the port runs eagerly and reads them on every call.
 """
 from __future__ import annotations
 
@@ -15,6 +16,15 @@ _FLAGS = {
     # "dense"   : compute-all-experts weighted mix (baseline)
     # "dispatch": capacity-based scatter dispatch (optimized)
     "moe_impl": os.environ.get("REPRO_MOE_IMPL", "dense"),
+    # expert-parallel MoE routing: None or {"mesh": repro_torch Mesh,
+    # "axis": str} — when set, the MoE FFN runs
+    # distributed.expert_parallel.ep_moe_mix with the expert axis split over
+    # the mesh's `axis` devices (dense-mix semantics)
+    "ep_shard": None,
+    # head-sharded paged decode: None or {"mesh": Mesh, "axis": str} — when
+    # set, a paged decode step runs sharded_paged_flash_decode, each shard of
+    # `axis` decoding its own KV-head slice of the pool (pages replicated)
+    "paged_shard": None,
 }
 
 

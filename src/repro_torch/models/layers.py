@@ -35,6 +35,7 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_decode import ops as fd_ops
 from repro_torch.kernels.moe_gmm import ops as moe_ops
 from repro_torch.kernels.rmsnorm import ops as rms_ops
+from repro_torch.models import flags
 
 NEG_INF = -2.0 ** 30  # large-negative that survives bf16
 
@@ -274,7 +275,9 @@ def paged_attention_fwd(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     Unlike the JAX function, which returns new pools, the port writes this
     chunk's K/V into ``kp``/``vp`` in place (``index_copy_`` into the
     ``(P·page, Hkv, D)`` view) and returns only the attention output.
-    ``C == 1`` runs the paged decode kernel; ``C > 1`` runs the
+    ``C == 1`` runs the paged decode kernel (with the ``paged_shard`` flag
+    set, :func:`~repro_torch.kernels.flash_decode.ops.sharded_paged_flash_decode`
+    over the flag's mesh); ``C > 1`` runs the
     flash-attention kernel on the pools through ``ptab`` (the kernel reads
     the mapped pages in place; no gathered copy) with per-row
     ``kv_len = lens``.
@@ -287,7 +290,12 @@ def paged_attention_fwd(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     kp.view(P * page, Hkv, D).index_copy_(0, widx, k.reshape(B * C, Hkv, D))
     vp.view(P * page, Hkv, D).index_copy_(0, widx, v.reshape(B * C, Hkv, D))
 
-    if C == 1:
+    shard = flags.get_flag("paged_shard")
+    if C == 1 and shard is not None:
+        out = fd_ops.sharded_paged_flash_decode(
+            q[:, 0], kp, vp, ptab, lens, shard["mesh"], shard.get("axis", "model"),
+            window=window, softcap=cfg.attn_logit_softcap)[:, None]
+    elif C == 1:
         out = fd_ops.paged_flash_decode_head_slice(
             q[:, 0], kp, vp, ptab, lens, 0, Hkv, window=window,
             softcap=cfg.attn_logit_softcap)[:, None]

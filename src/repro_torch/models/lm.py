@@ -36,6 +36,11 @@ JAX-style ``torch.where`` over the whole cache would copy it every
 dispatch.  :func:`reset_slots` and :func:`mask_cache_update` keep the JAX
 semantics (new tensors); the engine uses the in-place :func:`wipe_slots_`.
 
+Pipeline stages (:func:`slice_stage_params`, :func:`slice_stage_cache`,
+:func:`stage_step`, :func:`paged_stage_step`, :func:`concat_stage_states`)
+run a layer slice of a stage-sliceable family; :func:`step_with_cache` and
+:func:`paged_step` are their one-stage case.
+
 The migration wire format (:func:`extract_slot`, :func:`install_slot`,
 :func:`extract_paged_slot`, :func:`install_paged_slot`) is host numpy with
 the JAX keys, shapes and int32 ``pos``; bf16 leaves travel as float32
@@ -44,6 +49,7 @@ leaves are accepted by dtype name.
 """
 from __future__ import annotations
 
+import copy
 import math
 from typing import Callable, Dict, Iterator, Mapping, Optional, Sequence, Tuple
 
@@ -53,6 +59,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device, working_dtype
+from repro_torch.distributed.expert_parallel import ep_moe_mix
 from repro_torch.models import flags, ssd
 from repro_torch.models.layers import (MLA, Attention, MoE, RMSNorm, SwiGLU,
                                        attention_fwd, cross_attention_fwd,
@@ -128,10 +135,16 @@ def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
 # model
 # --------------------------------------------------------------------------- #
 def _ffn_fwd(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU, or for the moe family the MoE FFN named by the ``moe_impl``
-    flag: ``"dispatch"`` runs :func:`moe_dispatch`, anything else
-    :func:`moe_dense_mix` (the JAX ``_ffn_fwd`` on one device)."""
+    """SwiGLU, or for the moe family: with the ``ep_shard`` flag set, the
+    expert-parallel dense mix over its mesh
+    (:func:`repro_torch.distributed.expert_parallel.ep_moe_mix`); else the
+    MoE FFN named by the ``moe_impl`` flag: ``"dispatch"`` runs
+    :func:`moe_dispatch`, anything else :func:`moe_dense_mix` (the JAX
+    ``_ffn_fwd``)."""
     if cfg.family == "moe":
+        ep = flags.get_flag("ep_shard")
+        if ep is not None:
+            return ep_moe_mix(p, cfg, x, ep["mesh"], ep.get("axis", "model"))
         impl = flags.get_flag("moe_impl")
         return (moe_dispatch if impl == "dispatch" else moe_dense_mix)(p, cfg, x)
     return swiglu(p, x)
@@ -193,7 +206,8 @@ class LM(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device: DeviceLike = None):
         super().__init__()
-        device = resolve_device(device)
+        # "meta": shapes only, nothing allocated (the sharding rules' walk)
+        device = torch.device("meta") if str(device) == "meta" else resolve_device(device)
         dtype = working_dtype(cfg)
         self.cfg = cfg
         self.embed = nn.Parameter(
@@ -523,38 +537,17 @@ def step_with_cache(model: LM, cfg: ModelConfig, cache: Cache,
     ``n_frames`` of them (none for rows outside ``write``).  Returns logits
     (n, C, V) in f32, or (n, 1, V) when ``last_only``, and the cache.
     """
+    if stage_sliceable(cfg):
+        return stage_step(model, cfg, cache, tokens, pos2, first=True, last=True,
+                          rows=rows, write=write, last_only=last_only)
     n, C = tokens.shape
-    lo, hi = (0, _batch_size(cache)) if rows is None else rows
-    if hi - lo != n:
-        raise ValueError(f"rows {lo}:{hi} do not match {n} token rows")
-    dev = tokens.device
+    lo, hi = _rows_of(cache, rows, n)
     pos2 = pos2.long()
     x = _embed(model, cfg, tokens)
+    active = _active_rows(n, write, tokens.device)
 
     def mamba(layer, x, conv, ssm_st):
-        """One Mamba layer from this slot range's state, kept for ``write``."""
-        x, (c2, s2) = layer(x, (conv, ssm_st))
-        if write is None:
-            conv.copy_(c2)
-            ssm_st.copy_(s2)
-        else:
-            conv.index_copy_(0, write, c2.index_select(0, write).to(conv.dtype))
-            ssm_st.index_copy_(0, write, s2.index_select(0, write).to(ssm_st.dtype))
-        return x
-
-    if cfg.family == "ssm":
-        for l, layer in enumerate(model.layers):
-            x = mamba(layer, x, cache["conv"][l, lo:hi], cache["ssm"][l, lo:hi])
-        return _logits(model, cfg, x, last_only), cache
-    active = torch.ones(n, dtype=torch.bool, device=dev)
-    if write is not None:
-        active = torch.zeros_like(active).index_fill_(0, write, True)
-    if cfg.mla is not None:
-        for l, layer in enumerate(model.layers):
-            kv = (cache["ckv"][l, lo:hi], cache["pos"][l, lo:hi])
-            x = layer(x, lambda a, h: mla_fwd(a, cfg, h, pos2, kv_cache=kv,
-                                              active=active))
-        return _logits(model, cfg, x, last_only), cache
+        return _mamba_write(layer, x, conv, ssm_st, write)
 
     def attend(layer, x, prefix: str, l: int, window: Optional[int], cross=None):
         """``layer`` against buffer ``l`` of the ``{prefix}k/v`` stack."""
@@ -578,16 +571,43 @@ def step_with_cache(model: LM, cfg: ModelConfig, cache: Cache,
         for i, (local, glob) in enumerate(model.layer_pairs):
             x = attend(local, x, "loc_", i, cfg.sliding_window)
             x = attend(glob, x, "glob_", i, None)
-    else:
+    else:                                   # encoder-decoder
         window = ring_window(cfg)
         _write_pos(cache["pos"][:, lo:hi], pos2, active, ring=window is not None)
-        xlen = (torch.where(active, cache["xk"].shape[2], 0).to(torch.int32)
-                if cfg.is_encoder_decoder else None)
+        xlen = torch.where(active, cache["xk"].shape[2], 0).to(torch.int32)
         for l, layer in enumerate(model.layers):
-            cross = None if xlen is None else lambda a, h: cross_attention_fwd(
+            cross = lambda a, h: cross_attention_fwd(
                 a, cfg, h, cache["xk"][l, lo:hi], cache["xv"][l, lo:hi], xlen)
             x = attend(layer, x, "", l, window, cross)
     return _logits(model, cfg, x, last_only), cache
+
+
+def _rows_of(cache: Cache, rows: Optional[Tuple[int, int]], n: int) -> Tuple[int, int]:
+    lo, hi = (0, _batch_size(cache)) if rows is None else rows
+    if hi - lo != n:
+        raise ValueError(f"rows {lo}:{hi} do not match {n} token rows")
+    return lo, hi
+
+
+def _active_rows(n: int, write: Optional[torch.Tensor], device) -> torch.Tensor:
+    """(n,) bool: the rows listed in ``write`` (None: all)."""
+    active = torch.ones(n, dtype=torch.bool, device=device)
+    if write is not None:
+        active = torch.zeros_like(active).index_fill_(0, write, True)
+    return active
+
+
+def _mamba_write(layer, x: torch.Tensor, conv: torch.Tensor, ssm_st: torch.Tensor,
+                 write: Optional[torch.Tensor]) -> torch.Tensor:
+    """One Mamba layer from a slot range's state, kept for ``write``."""
+    x, (c2, s2) = layer(x, (conv, ssm_st))
+    if write is None:
+        conv.copy_(c2)
+        ssm_st.copy_(s2)
+    else:
+        conv.index_copy_(0, write, c2.index_select(0, write).to(conv.dtype))
+        ssm_st.index_copy_(0, write, s2.index_select(0, write).to(ssm_st.dtype))
+    return x
 
 
 def _write_pos(pos: torch.Tensor, pos2: torch.Tensor, active: torch.Tensor,
@@ -705,8 +725,18 @@ def paged_step(model: LM, cfg: ModelConfig, cache: Cache,
     updated in place and returned.  Returns logits (B, C, V) in f32, or
     (B, 1, V) for the last position only when ``last_only``.
     """
-    B, C = tokens.shape
-    x = model.embed[tokens]
+    return paged_stage_step(model, cfg, cache, tokens, pos2, ptab, active,
+                            page_size=page_size, first=True, last=True,
+                            last_only=last_only)
+
+
+def paged_indices(pos2: torch.Tensor, ptab: torch.Tensor, active: torch.Tensor,
+                  page_size: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(lens, ptab, widx) of a paged chunk, shared by every layer: ``lens``
+    (B,) int32 valid keys after the chunk (0 when inactive), ``ptab`` as
+    contiguous int32, ``widx`` (B·C,) flat pool rows, inactive lanes
+    diverted into the trash page at ``arange(C) % page_size``."""
+    C = pos2.shape[1]
     active = active.bool()
     pos2 = pos2.long()
     lens = torch.where(active, pos2[:, -1] + 1, 0).to(torch.int32)
@@ -714,17 +744,157 @@ def paged_step(model: LM, cfg: ModelConfig, cache: Cache,
     phys = torch.gather(ptab.long(), 1, pos2 // page_size)            # (B, C)
     widx = phys * page_size + pos2 % page_size
     trash = (torch.arange(C, device=pos2.device) % page_size)[None, :]
-    widx = torch.where(active[:, None], widx, trash).reshape(-1)
+    return lens, ptab, torch.where(active[:, None], widx, trash).reshape(-1)
+
+
+# --------------------------------------------------------------------------- #
+# pipeline stages (layer-granular slicing for pp replicas)
+# --------------------------------------------------------------------------- #
+def stage_sliceable(cfg: ModelConfig) -> bool:
+    """Families whose layers are ONE homogeneous stack and whose contiguous
+    cache stacks every leaf on a leading layer axis, so a pipeline stage is
+    a pure ``[lo:hi]`` slice: dense/moe (incl. pure SWA), MLA, vlm, and
+    plain SSM.  Hybrid groups, encoder-decoder cross-attention and
+    gemma-style local/global pairs stay at pp=1."""
+    return (cfg.family != "hybrid"
+            and not cfg.is_encoder_decoder
+            and cfg.local_global_every == 0)
+
+
+class Stage:
+    """One pipeline stage's parameters over layers ``[lo, hi)``: the layer
+    modules (shared with the whole model, not copied), the embedding on the
+    first stage, the final norm and head on the last — the embedding again
+    for tied configs, so those hold the table on both end stages.  Duck-types
+    :class:`LM` for :func:`stage_step` and :func:`paged_stage_step`."""
+
+    def __init__(self, cfg: ModelConfig, layers, embed=None, final_norm=None,
+                 lm_head=None):
+        self.cfg = cfg
+        self.layers = list(layers)
+        self.embed = embed
+        self.final_norm = final_norm
+        self.lm_head = lm_head
+
+    def head(self) -> torch.Tensor:
+        return self.embed.t() if self.cfg.tie_embeddings else self.lm_head
+
+    def to(self, device: torch.device) -> "Stage":
+        """This stage on ``device``: itself when already there, else a copy."""
+        if self.device == device:
+            return self
+        mv = lambda m: None if m is None else copy.deepcopy(m).to(device)
+        tv = lambda t: None if t is None else t.to(device)
+        return Stage(self.cfg, [mv(layer) for layer in self.layers], tv(self.embed),
+                     mv(self.final_norm), tv(self.lm_head))
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.named_parameters())[1].device
+
+    def named_parameters(self) -> Iterator[Tuple[str, torch.Tensor]]:
+        """:class:`LM`'s names, the layers numbered from 0 within the stage."""
+        for name, t in (("embed", self.embed), ("lm_head", self.lm_head)):
+            if t is not None:
+                yield name, t
+        if self.final_norm is not None:
+            yield "final_norm.scale", self.final_norm.scale
+        for i, layer in enumerate(self.layers):
+            for name, t in layer.named_parameters():
+                yield f"layers.{i}.{name}", t
+
+
+def slice_stage_params(cfg: ModelConfig, model: LM, lo: int, hi: int,
+                       first: bool, last: bool) -> Stage:
+    """Parameters of one pipeline stage over layers ``[lo, hi)`` (the JAX
+    ``slice_stage_params``): the layer modules of ``model`` themselves, the
+    embedding on the first stage (and on the last for tied configs), the
+    final norm and LM head on the last."""
+    return Stage(cfg, model.layers[lo:hi],
+                 model.embed if first or (last and cfg.tie_embeddings) else None,
+                 model.final_norm if last else None,
+                 model.lm_head if last and not cfg.tie_embeddings else None)
+
+
+def slice_stage_cache(cache: Cache, lo: int, hi: int) -> Cache:
+    """Cache slice for layers ``[lo, hi)``: views of every leaf's leading
+    layer axis (stage-sliceable families stack every leaf on it)."""
+    return _map_leaves(lambda path, t: t[lo:hi], cache)
+
+
+def concat_stage_states(parts: Sequence[Mapping]) -> Dict[str, object]:
+    """Reassemble per-stage extracts (host numpy, leading layer axis) into
+    the full per-layer wire format — byte-identical to a single-engine
+    extract, so a pipelined export installs anywhere."""
+    return _map_leaves(lambda path, *ls: np.concatenate(ls, axis=0), *parts)
+
+
+def stage_step(stage, cfg: ModelConfig, cache: Cache, x: torch.Tensor,
+               pos2: torch.Tensor, *, first: bool, last: bool,
+               rows: Optional[Tuple[int, int]] = None,
+               write: Optional[torch.Tensor] = None,
+               last_only: bool = False) -> Tuple[torch.Tensor, Cache]:
+    """Contiguous-cache forward over ONE pipeline stage's layer slice (the
+    JAX ``stage_step``), with :func:`step_with_cache`'s ``rows``/``write``
+    contract.  ``x`` is the int tokens (n, C) on the first stage and the
+    previous stage's hidden state (n, C, d) otherwise; ``cache`` holds the
+    stage's layers.  Returns logits on the last stage (as
+    :func:`step_with_cache`) and the hidden state to hand off otherwise.
+    Composing the stages in order reproduces :func:`step_with_cache`."""
+    n = pos2.shape[0]
+    lo, hi = _rows_of(cache, rows, n)
+    pos2 = pos2.long()
+    if first:
+        x = _embed(stage, cfg, x)
+    if cfg.family == "ssm":
+        for l, layer in enumerate(stage.layers):
+            x = _mamba_write(layer, x, cache["conv"][l, lo:hi], cache["ssm"][l, lo:hi],
+                             write)
+    else:
+        active = _active_rows(n, write, pos2.device)
+        if cfg.mla is not None:
+            for l, layer in enumerate(stage.layers):
+                kv = (cache["ckv"][l, lo:hi], cache["pos"][l, lo:hi])
+                x = layer(x, lambda a, h: mla_fwd(a, cfg, h, pos2, kv_cache=kv,
+                                                  active=active))
+        else:
+            window = ring_window(cfg)
+            _write_pos(cache["pos"][:, lo:hi], pos2, active, ring=window is not None)
+            for l, layer in enumerate(stage.layers):
+                kv = (cache["k"][l, lo:hi], cache["v"][l, lo:hi])
+                x = layer(x, lambda a, h: attention_fwd(a, cfg, h, pos2, window,
+                                                        kv_cache=kv, active=active))
+    if not last:
+        return x, cache
+    return _logits(stage, cfg, x, last_only), cache
+
+
+def paged_stage_step(stage, cfg: ModelConfig, cache: Cache, x: torch.Tensor,
+                     pos2: torch.Tensor, ptab: torch.Tensor, active: torch.Tensor,
+                     *, page_size: int, first: bool, last: bool,
+                     last_only: bool = False) -> Tuple[torch.Tensor, Cache]:
+    """Paged forward over ONE pipeline stage's layer slice of the pool (the
+    JAX ``paged_stage_step``), with :func:`paged_step`'s contract.  The
+    write indices are recomputed per stage from the same (pos2, ptab,
+    active) — they are stage-invariant, so every stage scatters into the
+    same page rows of its own layer slice.  Composing the stages in order
+    reproduces :func:`paged_step`."""
+    lens, ptab, widx = paged_indices(pos2, ptab, active, page_size)
+    pos2 = pos2.long()
+    if first:
+        x = _embed(stage, cfg, x)
     if cfg.mla is not None:
-        for layer, ckvp in zip(model.layers, cache["ckvp"]):
+        for layer, ckvp in zip(stage.layers, cache["ckvp"]):
             x = layer(x, lambda a, h: paged_mla_fwd(a, cfg, h, pos2, ckvp, ptab,
                                                     lens, widx))
-        return _logits(model, cfg, x, last_only), cache
-    window = paged_window(cfg)
-    for layer, kp, vp in zip(model.layers, cache["kp"], cache["vp"]):
-        x = layer(x, lambda a, h: paged_attention_fwd(
-            a, cfg, h, pos2, window, kp, vp, ptab, lens, widx))
-    return _logits(model, cfg, x, last_only), cache
+    else:
+        window = paged_window(cfg)
+        for layer, kp, vp in zip(stage.layers, cache["kp"], cache["vp"]):
+            x = layer(x, lambda a, h: paged_attention_fwd(
+                a, cfg, h, pos2, window, kp, vp, ptab, lens, widx))
+    if not last:
+        return x, cache
+    return _logits(stage, cfg, x, last_only), cache
 
 
 # --------------------------------------------------------------------------- #

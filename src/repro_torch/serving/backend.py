@@ -35,9 +35,11 @@ from repro_torch.core.policy import (KVCachePolicy, ReconfigPolicy,
                                      RecoveryPolicy, RequestPolicy)
 from repro_torch.core.simulator import Simulator
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.launch.mesh import LogicalDevice
 from repro_torch.models import lm
 from repro_torch.serving.engine import Engine, Request
 from repro_torch.serving.pool import EnginePool, PoolDiff
+from repro_torch.serving.sharded import SubmeshAllocator, engine_for_group
 
 
 def _percentile(sorted_vals: Sequence[float], q: float) -> float:
@@ -201,10 +203,17 @@ class TorchBackend:
     replicas, per-replica batch, what a plan change rebuilds — is real and
     every cost is measured wall-clock.
 
-    Replica groups with ``pp > 1``, or ``tp·dp > 1`` on a host with more
-    than one device, need the sharded slice and raise.  On a single-device
-    host a ``tp·dp > 1`` group runs as a plain engine, exactly as the JAX
-    backend does there (its allocator is off with one device).
+    ``devices`` is the logical device set the replicas are carved from
+    (:func:`repro_torch.launch.mesh.logical_devices`; default: one entry on
+    ``device``).  With more than one entry and ``shard_replicas``, a
+    :class:`~repro_torch.serving.sharded.SubmeshAllocator` carves them, as
+    ``JaxBackend`` does over ``jax.devices()``: engines come from
+    :func:`~repro_torch.serving.sharded.engine_for_group` — a
+    ``PipelinedEngine`` for ``pp > 1``, a ``ShardedEngine`` for
+    ``tp·dp > 1``, a plain engine otherwise or when the allocator is short.
+    With one device a ``pp > 1`` group still pipelines (its stages share the
+    device) and a ``tp·dp > 1`` group runs as a plain engine, exactly as the
+    JAX backend does on one device.
     """
     cfg: ModelConfig
     params: lm.LM
@@ -219,28 +228,29 @@ class TorchBackend:
     # applied once per serve_interval, keyed on the interval index so the
     # same injector seed replays the same faults at the same points
     fault_injector: Optional[object] = None
+    devices: Optional[Sequence[LogicalDevice]] = None
+    shard_replicas: bool = True
     pool: EnginePool = field(init=False)
+    allocator: Optional[SubmeshAllocator] = field(init=False, default=None)
     _rid: int = 0
     _interval_no: int = 0
     _shed_seen: int = 0
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
+        if self.devices is None:
+            self.devices = [LogicalDevice(0, self.device)]
+        if self.shard_replicas and len(self.devices) > 1:
+            self.allocator = SubmeshAllocator(self.devices)
         self.pool = EnginePool(self._make_engine,
                                max_replicas_per_group=self.max_replicas_per_group)
 
-    def _devices(self) -> int:
-        return torch.cuda.device_count() if self.device.type == "cuda" else 1
-
     def _make_engine(self, group: ReplicaGroup) -> Engine:
-        if group.pp > 1 or (group.tp * group.dp > 1 and self._devices() > 1):
-            raise NotImplementedError(
-                f"replica group tp={group.tp} dp={group.dp} pp={group.pp}: "
-                f"sharded and pipelined replicas come with the sharded slice")
-        return Engine(self.cfg, self.params,
-                      n_slots=max(1, min(group.batch, self.slots_cap)),
-                      max_seq_len=self.max_seq_len, page_size=self.page_size,
-                      device=self.device)
+        return engine_for_group(
+            self.cfg, self.params, group, self.allocator,
+            n_slots=max(1, min(group.batch, self.slots_cap)),
+            max_seq_len=self.max_seq_len, page_size=self.page_size,
+            device=self.device)
 
     # ------------------------------------------------------------------ #
     def set_request_policy(self, rp: Optional[RequestPolicy]) -> None:

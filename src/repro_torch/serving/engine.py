@@ -591,14 +591,40 @@ class Engine(RequestSchedulingMixin):
         cache = None
         if self.paged:
             if with_state:
-                cache = lm.extract_paged_slot(self.cfg, self.cache,
-                                              self._slot_pages[slot],
-                                              st.position, self.page_size)
+                cache = self._extract_paged_slot_state(slot, st.position)
             if release:
                 self._release_pages(slot, st)
         elif with_state:
-            cache = lm.extract_slot(self.cfg, self.cache, slot)
+            cache = self._extract_slot_state(slot)
         return SlotExport(cont, st, self.cfg, cache, st.position)
+
+    # slot state hooks: engines whose cache is not one monolithic dict (the
+    # pipelined and sharded engines) override these; the wire format is the
+    # same everywhere, so an export from any engine installs into any other
+    def _extract_slot_state(self, slot: int):
+        """Contiguous-path slot extract in the wire format."""
+        return lm.extract_slot(self.cfg, self.cache, slot)
+
+    def _install_slot_state(self, slot: int, state, position: int):
+        """Contiguous-path slot install; returns the cache to adopt."""
+        return lm.install_slot(self.cfg, self.cache, slot, state, position)
+
+    def _extract_paged_slot_state(self, slot: int, position: int):
+        """A paged slot's pages gathered into the contiguous wire format."""
+        return lm.extract_paged_slot(self.cfg, self.cache, self._slot_pages[slot],
+                                     position, self.page_size)
+
+    def _install_paged_slot_state(self, pages, state, position: int):
+        """Scatter a wire-format state into freshly-owned pages; returns the
+        cache to adopt."""
+        return lm.install_paged_slot(self.cfg, self.cache, pages, state,
+                                     position, self.page_size)
+
+    def _adopt_cache(self, cache):
+        """Take the cache an install returned.  The identity here (the
+        install wrote in place); a sharded engine re-splits the installed
+        state into its shards."""
+        return cache
 
     def release_exported(self, slot: int, st: RequestState) -> None:
         """Return the pages ``export_slot(slot, release=False)`` kept
@@ -629,10 +655,10 @@ class Engine(RequestSchedulingMixin):
         if self.paged:
             return self._install_paged(export, slot)
         try:
-            lm.install_slot(self.cfg, self.cache, slot, export.cache,
-                            export.position)
+            cache = self._install_slot_state(slot, export.cache, export.position)
         except lm.SlotMigrationError:
             return False
+        self.cache = self._adopt_cache(cache)
         st = export.state
         st.slot = slot
         self.active[slot] = st
@@ -653,12 +679,12 @@ class Engine(RequestSchedulingMixin):
                     pages.append(kvcache.TRASH_PAGE)
                 else:
                     pages.append(self._alloc_page())
-            lm.install_paged_slot(self.cfg, self.cache, pages, export.cache,
-                                  position, page)
+            cache = self._install_paged_slot_state(pages, export.cache, position)
         except (lm.SlotMigrationError, RuntimeError):
             for pid in pages:
                 self.page_pool.unref(pid)
             return False
+        self.cache = self._adopt_cache(cache)
         self._slot_pages[slot] = pages
         self._ptab[slot, :] = 0
         self._ptab[slot, :len(pages)] = pages

@@ -1,7 +1,7 @@
 """Host-side paged-KV bookkeeping (port of ``src/repro/serving/kvcache.py``).
 
-A copy of the page pool allocator and prefix (radix) index; the staged
-(per-pipeline-stage) pools come with the pipelined slice.  The device side
+A copy of the page pool allocator and prefix (radix) index, and of their
+per-pipeline-stage versions driven in lockstep.  The device side
 of paging lives in ``repro_torch.models.lm`` (page pools as tensors,
 page-table-indexed attention); this module owns the *host* structures the
 engine drives it with:
@@ -17,6 +17,9 @@ engine drives it with:
     counters and last-use stamps so the evolvable ``kv_cache`` policy domain
     can choose admission ("cache this prefix?") and eviction (LRU vs
     hit-frequency vs pinning) under memory pressure.
+  * :class:`StagedPagePool` / :class:`StagedPrefixIndex` — one pool and one
+    trie per pipeline stage, kept in lockstep so one page table drives
+    every stage's layer slice.
   * :class:`KVCacheCtx` — the plain-scalar typed view the ``kv_cache``
     policy hooks receive (same contract as RequestCtx/MigrationCtx: evolved
     code on the hot path sees numbers, never mutable engine state).
@@ -225,3 +228,121 @@ class PrefixIndex:
             self.nodes -= 1
         return node.page
 
+
+class StagedPagePool:
+    """Per-pipeline-stage page pools driven in lockstep.
+
+    A pipelined engine serves each layer slice from its own stage pool (on
+    a real deployment each stage host owns its pool's HBM), but a request's
+    logical block j must land on the SAME physical page id in every stage —
+    the page table is a single (B, n_ptab) array threaded through all stage
+    scans, and slot exports concatenate stage slices gathered by those ids.
+    This coordinator fans every alloc/ref/unref out to each stage's
+    :class:`PagePool` and asserts the ids agree, which they do by
+    construction (identical deterministic free lists, identical op
+    sequence).  It duck-types ``PagePool`` so all engine bookkeeping
+    (eviction, migration, leak accounting) is stage-count-agnostic.
+    """
+
+    def __init__(self, n_pages: int, stages: Sequence[Tuple[int, int]]):
+        if not stages:
+            raise ValueError("need >= 1 stage")
+        self.n_pages = n_pages
+        self.stage_pools: List[PagePool] = [
+            PagePool(n_pages, layers=(lo, hi)) for lo, hi in stages]
+
+    @property
+    def free_pages(self) -> int:
+        return self.stage_pools[0].free_pages
+
+    @property
+    def used_pages(self) -> int:
+        return self.stage_pools[0].used_pages
+
+    def alloc(self) -> Optional[int]:
+        pids = [p.alloc() for p in self.stage_pools]
+        if any(pid != pids[0] for pid in pids):  # pragma: no cover - lockstep
+            raise RuntimeError(f"stage pools diverged on alloc: {pids}")
+        return pids[0]
+
+    def ref(self, pid: int) -> None:
+        for p in self.stage_pools:
+            p.ref(pid)
+
+    def unref(self, pid: int) -> bool:
+        freed = [p.unref(pid) for p in self.stage_pools]
+        if any(f != freed[0] for f in freed):  # pragma: no cover - lockstep
+            raise RuntimeError(f"stage pools diverged on unref({pid})")
+        return freed[0]
+
+    def refcount(self, pid: int) -> int:
+        return self.stage_pools[0].refcount(pid)
+
+
+class StagedPrefixIndex:
+    """Per-stage radix tries driven in lockstep (see :class:`StagedPagePool`).
+
+    Each stage retains the same prefix blocks on the same page ids — the
+    trie structure is a pure function of the (prompt, pages) op sequence —
+    so ``match`` on any stage yields the same pages; stage 0 is canonical.
+    Eviction takes a stage-0 leaf and removes its *siblings* (the
+    same-position nodes in every other stage's trie), keeping the tries
+    identical.  Duck-types ``PrefixIndex`` for the engine and the evolvable
+    ``kv_cache`` policy hooks.
+    """
+
+    def __init__(self, page_size: int, stages: Sequence[Tuple[int, int]]):
+        if not stages:
+            raise ValueError("need >= 1 stage")
+        self.page_size = page_size
+        self.stage_tries: List[PrefixIndex] = [
+            PrefixIndex(page_size, layers=(lo, hi)) for lo, hi in stages]
+        # id(stage-0 node) -> same-position node in each later stage's trie
+        self._siblings: Dict[int, List[PrefixNode]] = {}
+
+    @property
+    def root(self):
+        return self.stage_tries[0].root
+
+    @property
+    def nodes(self) -> int:
+        return self.stage_tries[0].nodes
+
+    @property
+    def hits(self) -> int:
+        return self.stage_tries[0].hits
+
+    @property
+    def misses(self) -> int:
+        return self.stage_tries[0].misses
+
+    @property
+    def tokens_matched(self) -> int:
+        return self.stage_tries[0].tokens_matched
+
+    def match(self, prompt: Sequence[int], now: float
+              ) -> Tuple[List[int], int]:
+        outs = [t.match(prompt, now) for t in self.stage_tries]
+        if any(o != outs[0] for o in outs):  # pragma: no cover - lockstep
+            raise RuntimeError(f"stage tries diverged on match: {outs}")
+        return outs[0]
+
+    def insert(self, prompt: Sequence[int], pages: Sequence[int],
+               now: float) -> List[PrefixNode]:
+        per_stage = [t.insert(prompt, pages, now) for t in self.stage_tries]
+        for sib in zip(*per_stage):
+            if any(n.page != sib[0].page for n in sib):  # pragma: no cover
+                raise RuntimeError("stage tries diverged on insert")
+            self._siblings[id(sib[0])] = list(sib[1:])
+        return per_stage[0]
+
+    def leaves(self) -> List[PrefixNode]:
+        return self.stage_tries[0].leaves()
+
+    def remove(self, node: PrefixNode) -> int:
+        page = self.stage_tries[0].remove(node)
+        for trie, sib in zip(self.stage_tries[1:],
+                             self._siblings.pop(id(node), [])):
+            if trie.remove(sib) != page:  # pragma: no cover - lockstep
+                raise RuntimeError("stage tries diverged on remove")
+        return page

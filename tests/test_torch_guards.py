@@ -21,9 +21,11 @@ from repro_torch.kernels.moe_gmm import kernel as moe_kernel
 from repro_torch.kernels.moe_gmm import ops as moe_ops
 from repro_torch.kernels.rmsnorm import kernel as rms_kernel
 from repro_torch.kernels.rmsnorm import ops as rms_ops
+from repro_torch.launch.mesh import logical_devices
 from repro_torch.models import lm
 from repro_torch.serving.backend import TorchBackend, make_torch_backend
 from repro_torch.serving.engine import Engine
+from repro_torch.serving.sharded import PipelinedEngine
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "repro")
@@ -52,10 +54,16 @@ def test_port_never_imports_jax_or_the_jax_package():
     assert len(files) > 20 and (ROOT / "chip_smoke.py").exists()
     port = ROOT / "src" / "repro_torch"
     assert {port / "core" / "schedulers.py", port / "core" / "policy.py",
-            port / "core" / "plan.py", port / "configs" / "whisper_tiny.py"} <= set(files)
+            port / "core" / "plan.py", port / "configs" / "whisper_tiny.py",
+            port / "distributed" / "sharding.py", port / "distributed" / "expert_parallel.py",
+            port / "serving" / "sharded.py", port / "launch" / "mesh.py",
+            port / "launch" / "sharded_check.py"} <= set(files)
     offenders = {str(p.relative_to(ROOT)): b for p in files
                  if (b := _forbidden_imports(p))}
     assert offenders == {}
+    # the logical device set needs no environment flag (the reference's
+    # sharded check forces XLA host devices through one)
+    assert "XLA_FLAGS" not in (port / "launch" / "sharded_check.py").read_text()
 
 
 def test_scan_catches_forbidden_imports_but_not_repro_torch(tmp_path):
@@ -69,7 +77,7 @@ def test_scan_catches_forbidden_imports_but_not_repro_torch(tmp_path):
 
 def test_importing_the_port_loads_neither_jax_nor_repro():
     code = ("import sys, repro_torch, repro_torch.serving.backend, "
-            "repro_torch.launch.serve\n"
+            "repro_torch.launch.serve, repro_torch.launch.sharded_check\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro', 'triton'))\n"
             "assert not bad, bad\n")
@@ -142,8 +150,10 @@ def test_ops_route_only_cpu_and_cuda():
 
 
 def test_unported_paths_raise_not_implemented():
-    """Sharded replicas still raise; ``fail`` (ported with the faults
-    slice) refuses an engine the pool does not hold, as the reference's
+    """A pp-2 group builds a ``PipelinedEngine`` (its stages share the one
+    device); a tp-2 group of a family the port does not shard (mamba2, with
+    an allocator over logical devices) raises and returns its submesh;
+    ``fail`` refuses an engine the pool does not hold, as the reference's
     does; every config of the registry, whisper's encoder-decoder included,
     builds its model and its contiguous cache."""
     cfg = get_config("qwen2-1.5b").reduced()
@@ -156,9 +166,15 @@ def test_unported_paths_raise_not_implemented():
     backend = TorchBackend(cfg, model, device="cpu")
     with pytest.raises(ValueError, match="not in this pool"):
         backend.pool.fail(eng)
-    with pytest.raises(NotImplementedError, match="sharded"):
-        backend.apply_plan(Plan((ReplicaGroup("m", "H100-80G", 1, 2, 1, pp=2),)),
-                           None)
+    pp2 = ReplicaGroup("m", "H100-80G", 1, 2, 1, pp=2)
+    backend.apply_plan(Plan((pp2,)), None)
+    assert [type(e) for e in backend.pool._replicas[pp2]] == [PipelinedEngine]
+    ssm = get_config("mamba2-1.3b").reduced()
+    ssm_backend = TorchBackend(ssm, lm.init_params(ssm, device="cpu"), device="cpu",
+                               devices=logical_devices(4, "cpu"))
+    with pytest.raises(NotImplementedError, match="not sharded by the port"):
+        ssm_backend.apply_plan(Plan((ReplicaGroup("m", "H100-80G", 2, 2, 1),)), None)
+    assert ssm_backend.allocator.free_devices == 4
     assert backend.failure_count == 0
 
 
