@@ -22,32 +22,36 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      D 112; both at whisper-tiny's D 64 (flash attention over the
      encoder's 1500 frames causal and with ``causal=0``, the
      cross-attention's chunks with ``causal=0`` over them, a causal decoder
-     chunk; the decode over the 1500 frames and the 448-row buffer);
+     chunk; the decode over the 1500 frames and the 448-row buffer); the
+     training gradients of RMSNorm and flash attention (the CUDA forward,
+     then the backward's explicit PyTorch ops) against autograd through the
+     plain versions on the card at full width, with the device ms of each
+     forward kernel and of its backward ops at a microbatch's shapes;
   4. the paths at full width with seeded random weights, each with the
      kernels' launch counters zeroed just before it and checked against its
      dispatches just after:
      4.  qwen2-1.5b (28 layers, bf16) on the paged pool through
          ``TorchBackend``, 2 replicas × 8 slots, with a shared-prefix wave
          and a drain resize to half the batch;
-     4b. mamba2-1.3b (12 of 48 layers, bf16) on the contiguous state cache
+     4b. mamba2-1.3b (6 of 48 layers, bf16) on the contiguous state cache
          through ``TorchBackend``, 2 replicas × 8 slots, 16 requests;
      4c. qwen2-1.5b with ``paged=False``, one engine × 8 slots;
      4d. a ``migrate`` resize with requests in flight: paged → paged and
          contiguous → paged qwen2-1.5b, contiguous → contiguous mamba2-1.3b,
          tokens held to the same requests served undisturbed;
-     4e. mixtral-8x7b (4 of 32 layers, bf16) on the paged pool through
+     4e. mixtral-8x7b (2 of 32 layers, bf16) on the paged pool through
          ``TorchBackend``, 1 replica × 8 slots, once per MoE implementation
          (dense mix, capacity dispatch);
      4f. qwen1.5-110b (4 of 80 layers), mixtral-8x22b (4 of 56, dense mix)
          and chameleon-34b (8 of 48), each on one paged engine × 4 slots;
-     4g. minicpm3-4b (MLA, 8 of 62 layers) on the paged latent pool,
+     4g. minicpm3-4b (MLA, 4 of 62 layers) on the paged latent pool,
          1 engine × 8 slots, profiled, then migrate resizes paged → paged
          and paged → contiguous with 4 requests in flight;
      4h. mixtral-8x7b (1 of 32 layers) on a contiguous engine whose rolling
          ring (4096 rows) the prompts cross and decode wraps, the same
          requests on the paged pool (the window binds), and migrations
          ring → paged and paged → ring in flight;
-     4i. gemma2-9b (4 of 42 layers: local/global pairs, softcaps, D 256)
+     4i. gemma2-9b (2 of 42 layers: a local/global pair, softcaps, D 256)
          on a contiguous engine × 8 slots, profiled, then 8 → 4-slot
          migrations with 4 requests in flight; then cut to one pair with
          prompts past the local layers' 4096-row ring, each served token
@@ -60,7 +64,7 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
          JAX engine serves with, profiled, 8 → 4-slot migrations; then
          ``forward`` with 1500 frame embeddings and steps on a cache whose
          cross-attention keys that encoder filled;
-     4l. replica failure: qwen2-1.5b (28 layers, bf16) on the paged pool,
+     4l. replica failure: qwen2-1.5b (14 of 28 layers, bf16) on the paged pool,
          2 replicas × 4 slots under the ``retry-migrate`` recovery policy,
          6 requests of 128–512 tokens; a seeded ``FaultInjector`` kills a
          replica mid-decode (salvage onto the survivor, recompute the
@@ -75,7 +79,7 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
          fourth, then the planted ``BAD_REQUEST_SOURCE`` canaried over 2
          more and rolled back; every interval measured, no page leaks;
      4n. sharded and pipelined replicas on 4 logical devices of the card:
-         qwen2-1.5b whole on paged engines × 8 slots at tp 1, tp 2 (the
+         qwen2-1.5b (14 of 28 layers) on paged engines × 8 slots at tp 1, tp 2 (the
          head-sharded pool), tp 4 (the recorded KV-head fallback), dp 2 ×
          tp 2, pp 2, pp 4 and pp 2 × tp 2, each token held to tp 1's or a
          judged bf16 tie, launches per decode dispatch L·shards; a re-cut
@@ -83,11 +87,23 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
          logical set (engines counted by class, the short-allocator degrade
          counted); mixtral-8x7b (2 of 32 layers) tp 2 → EP held to the
          dense mix;
+     4o. training: qwen2-1.5b whole (28 layers, bf16) through
+         ``repro_torch.training.trainer.train`` with ``launch/train.py``'s
+         defaults (B 8, S 128, 2 microbatches, AdamW) for 8 steps, losses
+         finite, no step skipped, exactly 114 RMSNorm and 56 flash-attention
+         launches a step and no other kernel; host wall, tokens/s, one
+         profiled step (idle share, forward kernels against the backward's
+         ops) against its bound; the int8 ``compressed_allreduce`` of the
+         trained gradients over 4 logical devices of the card; a resume at 1
+         layer equal bit for bit to an uninterrupted run; a mamba2 step
+         refused (no SSD-scan gradient on the card);
   5. the port on the card (bf16, kernels) against the port on the CPU (f32,
      plain versions) for one prefill chunk and 8 decode steps at full
      width: qwen2-1.5b, mamba2-1.3b and minicpm3-4b at 2 layers,
      mixtral-8x7b at 1, gemma2-9b at one pair, zamba2-7b at one group
-     and the shared block, and whisper-tiny whole with its encoder;
+     and the shared block, and whisper-tiny whole with its encoder; and one
+     training step of qwen2-1.5b at 2 layers in f32 (loss and every
+     gradient within 1e-3 of the leaf's max);
   6. the kernels' JSON line, the card line, and the final JSON line.
 It imports nothing of JAX or the JAX package.
 """
@@ -856,6 +872,90 @@ def check_shard_kernels(torch) -> dict:
     return out
 
 
+def check_backward(torch) -> dict:
+    """Phase 3 for training: each autograd wrapper on the card (the CUDA
+    forward, then the backward's explicit PyTorch ops) against autograd
+    through its plain version on the same inputs on the card, at full width:
+    RMSNorm (1024, 1536), flash attention B 4, H 12, Hkv 2, D 128, causal,
+    at S 128 and S 2048; f32 to 2e-5, bf16 to 2e-2.  Then, bf16 at a
+    training microbatch's shapes (B 4, S 128: 512 rows), the device ms per
+    call of each kernel's forward and of its backward's ops, and each
+    backward's bound (its inputs and outputs once over 3.35 TB/s, its
+    products over 989 TFLOP/s)."""
+    from repro_torch.kernels.flash_attention import kernel as fa_k
+    from repro_torch.kernels.flash_attention import ops as fa_o, ref as fa_r
+    from repro_torch.kernels.rmsnorm import kernel as rms_k
+    from repro_torch.kernels.rmsnorm import ops as rms_o, ref as rms_r
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    dt_of = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    out = {"max_abs_err": {}}
+
+    def grads(fn, ins, g):
+        ins = [t.detach().clone().requires_grad_(True) for t in ins]
+        y = fn(*ins)
+        return y, torch.autograd.grad(y, ins, g)
+
+    def rand(shape, dt, scale=1.0):
+        return (scale * torch.randn(shape, device=dev, generator=gen)).to(dt_of[dt])
+
+    for dt in ("float32", "bfloat16"):
+        x, sc, g = rand((1024, 1536), dt), rand((1536,), "float32", 0.1), rand((1024, 1536), dt)
+        y, got = grads(rms_o.rmsnorm, (x, sc), g)
+        need(type(y.grad_fn).__name__ == "_RMSNormBackward", "rmsnorm: no autograd node")
+        _, want = grads(rms_r.rmsnorm_ref, (x, sc), g)
+        errs = [max_err(torch, a, b, dt) for a, b in zip(got, want)]
+        out["max_abs_err"][f"rmsnorm {dt} (1024, 1536)"] = max(errs)
+        print(f"[backward] rmsnorm {dt} (1024, 1536): dx max_abs_err {errs[0]:.3e}, "
+              f"dscale {errs[1]:.3e} (tol {TOL[dt]}) against autograd through the "
+              f"plain version")
+        for S in (128, 2048):
+            q, do = rand((4, S, 12, 128), dt), rand((4, S, 12, 128), dt)
+            k, v = rand((4, S, 2, 128), dt), rand((4, S, 2, 128), dt)
+            y, got = grads(fa_o.flash_attention, (q, k, v), do)
+            need(type(y.grad_fn).__name__ == "_FlashAttentionBackward",
+                 "flash_attention: no autograd node")
+            _, want = grads(fa_r.flash_attention_ref, (q, k, v), do)
+            errs = [max_err(torch, a, b, dt) for a, b in zip(got, want)]
+            out["max_abs_err"][f"flash_attention {dt} S={S}"] = max(errs)
+            print(f"[backward] flash_attention {dt} B 4, S {S}, H 12, Hkv 2, D 128, "
+                  f"causal: dq/dk/dv max_abs_err {errs[0]:.3e}/{errs[1]:.3e}/"
+                  f"{errs[2]:.3e} (tol {TOL[dt]})")
+            del y, got, want, q, k, v, do
+        torch.cuda.empty_cache()
+
+    # bf16 at one microbatch of qwen2-1.5b training: forward kernel vs backward ops
+    x, sc, g = rand((512, 1536), "bfloat16"), rand((1536,), "float32", 0.1), \
+        rand((512, 1536), "bfloat16")
+    q, do = rand((4, 128, 12, 128), "bfloat16"), rand((4, 128, 12, 128), "bfloat16")
+    k, v = rand((4, 128, 2, 128), "bfloat16"), rand((4, 128, 2, 128), "bfloat16")
+    B, S, H, Hkv, D = 4, 128, 12, 2, 128
+    # in: q, k, v, dO; out: dq, dk, dv (bf16).  The scores are recomputed, then
+    # dV, dP, dQ and dK: five products over the causal half of the scores
+    fa_bytes = (3 * B * S * H * D + 4 * B * S * Hkv * D) * 2
+    fa_flops = 5 * 2 * B * H * S * S * D / 2
+    rms_bytes = 2 * 512 * 1536 * 2 * 2 + 1536 * 4 * 2                # x, dy in; dx out; scale, dscale
+    timings = {
+        "rmsnorm": (lambda i: rms_k.rmsnorm(x, sc),
+                    lambda i: rms_o.rmsnorm_backward(x, sc, g), rms_bytes, 8.0 * x.numel()),
+        "flash_attention": (lambda i: fa_k.flash_attention(q, k, v, True),
+                            lambda i: fa_o.flash_attention_backward(q, k, v, do),
+                            fa_bytes, fa_flops)}
+    for name, (fwd, bwd, nbytes, flops) in timings.items():
+        f_dev = device_ms(torch, fwd, 1, "", iters=40)
+        b_dev = device_ms(torch, bwd, 1, "", iters=20)
+        b_ms = time_ms(torch, bwd, 1, iters=20)
+        b_bound, b_by = bound(nbytes, flops, "bfloat16")
+        out[name] = dict(forward_device_ms=f_dev, backward_device_ms=b_dev,
+                         backward_event_ms=b_ms, backward_bound_ms=b_bound,
+                         backward_bound_by=b_by)
+        print(f"[backward] {name} bf16 at a microbatch's shape: forward kernel "
+              f"{f_dev:.4f} device ms per launch; backward ops {b_dev:.4f} device ms "
+              f"per call ({b_ms:.4f} ms event), bound {b_bound:.5f} ms by {b_by}")
+    return out
+
+
 def check_whisper_shapes(torch, rows, randn, timed, text, fa_plan):
     """Phase 3 at whisper-tiny's shapes (H = Hkv = 6, D 64), bf16 and f32
     against the plain versions, then bf16 timed beside SDPA: flash
@@ -1111,7 +1211,6 @@ def profile_steps(torch, eng, n: int, prepare=None, host_ops: bool = True):
     each of the two runs.  ``host_ops=False`` traces the device alone: a
     62-layer MLA admission records so many host ops that reading their
     trace back costs more than the steps themselves."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     if prepare is not None:
@@ -1133,8 +1232,21 @@ def profile_steps(torch, eng, n: int, prepare=None, host_ops: bool = True):
             eng.step()
         torch.cuda.synchronize()
         pwall = time.perf_counter() - t1
+    busy, groups = busy_by_group(prof)
+    return wall, dispatches, pwall, busy, groups
+
+
+def busy_by_group(prof):
+    """Device busy seconds of a profile (union of kernel intervals) and
+    seconds by kernel group."""
+    from torch.autograd import DeviceType
+
+    # a ``record_function`` range also shows on the device timeline, as a
+    # span from its first kernel to its last: not device work
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)
+                   and not e.name.startswith("repro_torch::"))
     busy, cur_s, cur_e = 0.0, None, None
     groups = {}
     for s_, e_, name in spans:
@@ -1154,7 +1266,7 @@ def profile_steps(torch, eng, n: int, prepare=None, host_ops: bool = True):
             cur_e = max(cur_e, e_)
     if cur_e is not None:
         busy += cur_e - cur_s
-    return wall, dispatches, pwall, busy / 1e6, {k: v / 1e6 for k, v in groups.items()}
+    return busy / 1e6, {k: v / 1e6 for k, v in groups.items()}
 
 def serve_main_path(torch, card: str):
     import numpy as np
@@ -1833,7 +1945,7 @@ def param_count(cfg) -> int:
 
 
 def serve_mixtral(torch, card: str):
-    """Phase 4e: mixtral-8x7b at full width and 4 of its 32 layers on the
+    """Phase 4e: mixtral-8x7b at full width and 2 of its 32 layers on the
     paged pool through ``TorchBackend``, 1 replica × 8 slots, once per MoE
     implementation: 8 requests of 128–512-token prompts, half sharing a
     128-token prefix, in two waves of 4, 32 new tokens each."""
@@ -1849,7 +1961,7 @@ def serve_mixtral(torch, card: str):
     from repro_torch.serving.engine import Request
 
     full = get_config("mixtral-8x7b")
-    cfg = dataclasses.replace(full, n_layers=4)
+    cfg = dataclasses.replace(full, n_layers=2)
     L, V, MAX_NEW, model_name = cfg.n_layers, cfg.vocab_size, 32, cfg.name
     t0 = time.monotonic()
     model = lm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
@@ -2700,7 +2812,7 @@ def fault_run(torch, cfg, model, prompts: dict, plan, inj, max_new: int) -> dict
 
 def serve_faults(torch, card: str) -> dict:
     """Phase 4l: replica failure on the card.  qwen2-1.5b at full width and
-    depth (bf16, the paged pool) on 2 replicas × 4 slots under the
+    14 of 28 layers (bf16, the paged pool) on 2 replicas × 4 slots under the
     ``retry-migrate`` recovery policy; 6 requests of 128–512 tokens, 32 new
     each.  ``FaultInjector.from_seed(0, n_events=3, horizon=3, kill_ratio=1.0,
     deny_export_rate=0.0)`` kills a replica mid-decode (its live slots
@@ -2718,7 +2830,7 @@ def serve_faults(torch, card: str) -> dict:
     from repro_torch.serving.faults import FaultInjector
 
     tol, MAX_NEW = TOL["bfloat16"], 32
-    cfg = get_config("qwen2-1.5b")
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"), n_layers=14)   # of 28
     L = cfg.n_layers
     model = lm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     plan = Plan((ReplicaGroup(cfg.name, "H100-80G", tp=1, batch=4, count=2),))
@@ -2918,7 +3030,7 @@ def serve_autopoiesis(torch, card: str) -> dict:
 def serve_sharded(torch, card: str) -> dict:
     """Phase 4n: sharded and pipelined replicas on 4 logical devices (on
     ``cuda:0`` with one card, on distinct cards otherwise).  qwen2-1.5b
-    whole (28 layers, d 1536, H 12, Hkv 2, D 128, bf16, seeded weights)
+    at 14 of 28 layers (d 1536, H 12, Hkv 2, D 128, bf16, seeded weights)
     on paged engines × 8 slots (page 16): tp 1 (the plain engine every run
     is held to), tp 2 (the head-sharded pool and decode), tp 4 (the
     recorded ``kv_heads`` fallback: replicated pool, row-table decode),
@@ -2946,7 +3058,7 @@ def serve_sharded(torch, card: str) -> dict:
     from repro_torch.serving.sharded import (PipelinedEngine, ShardedEngine,
                                              SubmeshAllocator)
 
-    cfg = get_config("qwen2-1.5b")
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"), n_layers=14)   # of 28
     L, MAX_NEW, REPEAT_NEW = cfg.n_layers, 16, 4
     # prefill chunks of up to 256 tokens: a 128–512-token prompt takes 1–5
     # dispatches (up to 8 at 64), each running every shard's layers
@@ -3221,6 +3333,201 @@ def serve_sharded(torch, card: str) -> dict:
 
 
 # --------------------------------------------------------------------------- #
+# phase 4o: training on the card
+# --------------------------------------------------------------------------- #
+def train_on_card(torch, card: str) -> dict:
+    """qwen2-1.5b whole (28 layers, bf16, tied) trained through
+    ``repro_torch.training.trainer.train`` with ``launch/train.py``'s defaults
+    (B 8, S 128, 2 microbatches, lr 3e-3, warmup 20) for 8 steps: every loss
+    finite, no skipped step, and exactly (2L+1)·2 RMSNorm and L·2
+    flash-attention launches a step (two microbatch forwards; the backward
+    launches no kernel) and no other kernel.  Per step: host wall and tokens/s;
+    one more step under ``torch.profiler``: device busy and idle share, the
+    forward kernels' device time against the backward ops' (their profiler
+    ranges), and the bound 6·N·tokens / 989 TFLOP/s + the optimizer's bytes /
+    3.35 TB/s.  Then the int8 ``compressed_allreduce`` of the trained model's
+    gradients over 4 data shards on 4 logical devices of the card, a resume
+    check at 1 of 28 layers (3 steps, then 6 resuming from their checkpoint,
+    equal bit for bit to 6 uninterrupted steps) and a mamba2 step refused."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.compression import compressed_allreduce
+    from repro_torch.kernels.flash_attention import ops as fa_o
+    from repro_torch.kernels.rmsnorm import ops as rms_o
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.mesh import Mesh, logical_devices
+    from repro_torch.models import lm, zoo
+    from repro_torch.training import data as data_lib, optim
+    from repro_torch.training.trainer import TrainConfig, make_accum_train_step, train
+
+    args = train_cli.parser().parse_args(["--full", "--steps", "8"])
+    cfg, tcfg, dcfg = train_cli.configs(args)
+    need(cfg.name == "qwen2-1.5b" and cfg.n_layers == 28 and cfg.tie_embeddings,
+         f"unexpected config {cfg.name}")
+    model = lm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens = dcfg.global_batch * dcfg.seq_len
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    stamps = [time.perf_counter()]
+    report = train(cfg, tcfg, dcfg, params=model,
+                   on_step=lambda s_, l_: stamps.append(time.perf_counter()))
+    counts = read_launches()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    walls = [b - a for a, b in zip(stamps, stamps[1:])]
+    L, steps = cfg.n_layers, tcfg.steps
+    want = {"rmsnorm": (2 * L + 1) * tcfg.microbatches * steps,
+            "flash_attention": L * tcfg.microbatches * steps}
+    need(len(report.losses) == steps and all(math.isfinite(x) for x in report.losses),
+         f"non-finite or missing losses {report.losses}")
+    need(report.skipped_nan == 0, f"{report.skipped_nan} steps skipped")
+    need(counts == {**{k: 0 for k in counts}, **want},
+         f"training launches {counts}, want {want} and no other kernel")
+    steady = sorted(walls[1:])[len(walls[1:]) // 2]
+    print(f"[train] qwen2-1.5b whole ({n_params / 1e9:.4f} B parameters, bf16), B "
+          f"{dcfg.global_batch}, S {dcfg.seq_len}, {tcfg.microbatches} microbatches, "
+          f"{steps} steps: losses {', '.join(f'{x:.4f}' for x in report.losses)}; "
+          f"host wall per step {', '.join(f'{w:.3f}' for w in walls)} s (median of "
+          f"steps 2-{steps} {steady:.3f} s, {tokens / steady:.0f} tokens/s); peak "
+          f"memory {peak_gib:.2f} GiB; launches {counts} (per step "
+          f"{counts['rmsnorm'] // steps} RMSNorm, {counts['flash_attention'] // steps} "
+          f"flash attention)")
+
+    # one more step under the profiler (a fresh optimizer state: the same work)
+    named = dict(model.named_parameters())
+    step_fn = make_accum_train_step(cfg, tcfg.opt, tcfg.microbatches)
+    batch = {k: v.cuda() for k, v in data_lib.batch_at(dcfg, steps).items()}
+    state = optim.init_state(named)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(model, state, batch)
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t0
+    del state
+    busy, groups = busy_by_group(prof)
+
+    def kernel_ms(op):          # device time of the kernels an op and its children launched
+        return (sum(k.duration for k in op.kernels) / 1e3
+                + sum(kernel_ms(c) for c in op.cpu_children))
+
+    ranges = {}
+    for e in prof.events():
+        if e.name in (fa_o.BACKWARD_RANGE, rms_o.BACKWARD_RANGE, optim.RANGE):
+            ranges[e.name] = ranges.get(e.name, 0.0) + sum(kernel_ms(c) for c in
+                                                           e.cpu_children)
+    bwd = {"flash_attention": ranges.get(fa_o.BACKWARD_RANGE, 0.0),
+           "rmsnorm": ranges.get(rms_o.BACKWARD_RANGE, 0.0)}
+    opt_ms = ranges.get(optim.RANGE, 0.0)
+    opt_bytes = 24 * n_params      # p bf16 in + out, f32 grad in, m and v in + out
+    b_model = 6 * n_params * tokens / PEAK_FLOPS["bfloat16"] * 1e3
+    b_opt = opt_bytes / PEAK_BYTES * 1e3
+    gtxt = ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in
+                     sorted(groups.items(), key=lambda kv: -kv[1]))
+    idle = 1 - busy / pwall
+    print(f"[train] profiled step: host wall {pwall * 1e3:.2f} ms, device busy "
+          f"{busy * 1e3:.2f} ms (idle {100 * idle:.1f}%); kernels: {gtxt}; forward "
+          f"kernels flash_attention {groups.get('flash_attention', 0) * 1e3:.2f} ms, "
+          f"rmsnorm {groups.get('rmsnorm', 0) * 1e3:.2f} ms; backward ops (their "
+          f"profiler ranges) flash attention {bwd['flash_attention']:.2f} ms, rmsnorm "
+          f"{bwd['rmsnorm']:.2f} ms; AdamW (its range) {opt_ms:.2f} ms; bound "
+          f"{b_model:.3f} ms (6·N·tokens at 989 TFLOP/s)"
+          f" + {b_opt:.3f} ms (optimizer {opt_bytes / 1e9:.2f} GB at 3.35 TB/s) = "
+          f"{b_model + b_opt:.3f} ms")
+
+    # int8 compressed all-reduce of the trained model's gradients: 4 data
+    # shards of 2 sequences, one per logical device of the card
+    batch = {k: v.cuda() for k, v in data_lib.batch_at(dcfg, steps + 1).items()}
+    plist = list(named.values())
+    shard_grads = []
+    for i in range(4):
+        mb = {k: v[2 * i:2 * i + 2] for k, v in batch.items()}
+        shard_grads.append(torch.autograd.grad(zoo.loss_fn(model, cfg, mb), plist))
+    stacked = {k: torch.stack([g[j] for g in shard_grads]) for j, k in enumerate(named)}
+    del shard_grads
+    mesh = Mesh(np.array(logical_devices(4, "cuda"), dtype=object).reshape(4, 1),
+                ("data", "model"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    red, err = compressed_allreduce(stacked, mesh, "data")
+    torch.cuda.synchronize()
+    c_wall = time.perf_counter() - t0
+    worst, closer = 0.0, 0
+    for k in list(stacked):       # the error-feedback round leaf by leaf, freeing as it goes
+        g = stacked.pop(k)
+        exact = g.float().mean(0)
+        bound_k = float(sum(g[i].float().abs().max() for i in range(4))) / 4 / 254
+        worst = max(worst, float((red[k] - exact).abs().max()) / max(bound_k, 1e-30))
+        red2, _ = compressed_allreduce({k: g}, mesh, "data", error_state={k: err.pop(k)})
+        two = (red[k] + red2[k]) / 2
+        closer += float((two - exact).abs().max()) <= float((red[k] - exact).abs().max()) + 1e-9
+        del g, exact, red2, two
+    need(worst <= 1.0 + 1e-3, f"compressed mean beyond half a quantization step: {worst}")
+    need(closer == len(red), f"error feedback closer on {closer} of {len(red)} leaves")
+    del red, err
+    torch.cuda.empty_cache()
+    print(f"[train] compressed_allreduce over {len(named)} gradient leaves of 4 data "
+          f"shards on 4 logical devices of the card: {c_wall * 1e3:.2f} ms host wall "
+          f"(synchronised); int8 payload {4 * n_params / 1e9:.2f} GB against "
+          f"{16 * n_params / 1e9:.2f} GB in f32 (no interconnect crossed: one card); "
+          f"largest error {worst:.4f} of half a quantization step; the error-feedback "
+          f"round closer to the exact mean on {closer}/{len(named)} leaves")
+    del model, named, plist, batch
+    torch.cuda.empty_cache()
+
+    # resume: 1 of 28 layers at full width, checkpoints in a directory removed here
+    cfg1 = dataclasses.replace(cfg, n_layers=1)
+    fresh = lambda: lm.init_params(cfg1, torch.Generator(device="cuda").manual_seed(1), "cuda")
+    run = lambda n, d, m: train(cfg1, dataclasses.replace(tcfg, steps=n, ckpt_dir=d),
+                                dcfg, params=m)
+    tmp = tempfile.mkdtemp(prefix="resume_", dir=ROOT / "build")
+    try:
+        t0 = time.perf_counter()
+        whole_m = fresh()
+        whole = run(6, None, whole_m)
+        first = run(3, tmp, fresh())
+        rest_m = fresh()
+        rest = run(6, tmp, rest_m)
+        r_wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    same_p = all(torch.equal(a, b) for a, b in zip(whole_m.parameters(), rest_m.parameters()))
+    need(first.losses == whole.losses[:3] and rest.resumed_from == 3
+         and rest.losses == whole.losses[3:] and same_p,
+         f"resume differs: whole {whole.losses}, first {first.losses}, resumed "
+         f"{rest.losses} from {rest.resumed_from}, parameters equal {same_p}")
+    print(f"[train] resume at 1 of 28 layers: 6 uninterrupted steps {whole.losses}; 3 "
+          f"steps, then 6 resumed from step {rest.resumed_from}: {rest.losses}, equal bit "
+          f"for bit, final parameters equal ({r_wall:.1f} s with 2 checkpoint writes)")
+    del whole_m, rest_m
+    torch.cuda.empty_cache()
+
+    # a family whose kernel has no gradient on the card yet
+    ssm = dataclasses.replace(get_config("mamba2-1.3b"), n_layers=1)
+    small = data_lib.DataConfig(vocab_size=ssm.vocab_size, seq_len=64, global_batch=2)
+    try:
+        train(ssm, TrainConfig(steps=1), small)
+        raise RuntimeError("a mamba2 training step on the card did not raise")
+    except NotImplementedError as e:
+        refusal = str(e)
+    print(f"[train] mamba2 (1 layer) on the card: NotImplementedError: {refusal}")
+    torch.cuda.empty_cache()
+    return dict(losses=report.losses, step_wall_s=walls, median_step_s=steady,
+                tokens_per_s=tokens / steady, peak_gib=peak_gib, params=n_params,
+                launches=counts, profiled_wall_ms=pwall * 1e3, busy_ms=busy * 1e3,
+                idle=idle, groups_ms={k: v * 1e3 for k, v in groups.items()},
+                backward_ms=bwd, adamw_ms=opt_ms, bound_ms=b_model + b_opt, bound_model_ms=b_model,
+                bound_optimizer_ms=b_opt, compress_wall_ms=c_wall * 1e3,
+                compress_worst=worst, resume_losses=rest.losses, resume_wall_s=r_wall,
+                refusal=refusal)
+
+
+# --------------------------------------------------------------------------- #
 # phase 5: port on the card vs port on the CPU
 # --------------------------------------------------------------------------- #
 def card_vs_cpu(torch, arch: str, cpu_dtype: str = "float32",
@@ -3390,6 +3697,48 @@ def card_vs_cpu(torch, arch: str, cpu_dtype: str = "float32",
     return worst
 
 
+def card_vs_cpu_train(torch, n_layers: int = 2) -> float:
+    """One training step's loss and gradients of qwen2-1.5b at ``n_layers``
+    of 28 layers, full width, in f32 (B 4, S 128): the card (RMSNorm and
+    flash-attention kernels forward, the explicit backward ops) against the
+    CPU (plain versions) with the same weights and batch.  The loss is held
+    within 1e-3 of itself and every gradient within 1e-3 of its leaf's
+    largest magnitude; returns the largest such relative difference."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm, zoo
+    from repro_torch.training import data as data_lib
+
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"), n_layers=n_layers, dtype="float32")
+    batch = data_lib.batch_at(data_lib.DataConfig(vocab_size=cfg.vocab_size, seq_len=128,
+                                                  global_batch=4), 0)
+    m_gpu = lm.init_params(cfg, torch.Generator(device="cuda").manual_seed(11), "cuda")
+    m_cpu = lm.LM(cfg, "cpu")
+    with torch.no_grad():
+        for pg, pc in zip(m_gpu.parameters(), m_cpu.parameters()):
+            pc.copy_(pg)
+    out = {}
+    for key, m in (("cuda", m_gpu), ("cpu", m_cpu)):
+        params = list(m.parameters())
+        for p in params:
+            p.requires_grad_(True)
+        loss = zoo.loss_fn(m, cfg, {k: v.to(key) for k, v in batch.items()})
+        out[key] = (float(loss.detach()), [g.cpu() for g in torch.autograd.grad(loss, params)])
+    (l_gpu, g_gpu), (l_cpu, g_cpu) = out["cuda"], out["cpu"]
+    rel = [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+           for a, b in zip(g_gpu, g_cpu)]
+    worst = max(rel)
+    names = [n for n, _ in m_cpu.named_parameters()]
+    need(abs(l_gpu - l_cpu) <= 1e-3 * abs(l_cpu), f"loss {l_gpu} on the card, {l_cpu} on the CPU")
+    need(worst <= 1e-3, f"gradient {names[rel.index(worst)]} differs by {worst:.3e} of its max")
+    print(f"[card-vs-cpu] qwen2-1.5b train step, {n_layers} layers at full width, f32, B 4, "
+          f"S 128: loss {l_gpu:.6f} on the card, {l_cpu:.6f} on the CPU; largest gradient "
+          f"difference {worst:.3e} of its leaf's max ({names[rel.index(worst)]}) over "
+          f"{len(rel)} leaves (tol 1e-3)")
+    del m_gpu, out
+    torch.cuda.empty_cache()
+    return worst
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3456,11 +3805,12 @@ def main(argv=None) -> int:
     t3 = time.monotonic()
     rows = check_kernels(torch)
     rows["shard_kernels"] = check_shard_kernels(torch)
+    rows["backward"] = check_backward(torch)
     print(f"[time] phase 3: {time.monotonic() - t3:.1f}s")
     print(json.dumps({"flash_attention_serving": rows["flash_attention_serving"],
                       "decode_serving": rows["decode_serving"],
                       "head_dims": rows["head_dims"], "whisper": rows["whisper"],
-                      "device_ms_per_launch": rows["device_ms"],
+                      "backward": rows["backward"], "device_ms_per_launch": rows["device_ms"],
                       "profiler_estimates": ESTIMATED, "card": card}))
     if args.only == "kernels":
         return 0
@@ -3484,7 +3834,7 @@ def main(argv=None) -> int:
     # sharded runs (84 s on a slow host, the command 549.6 s) cut mamba2 to
     # 12 layers, mixtral in 4e to 4, gemma2 in 4i to 4 and zamba2 in 4j to
     # 15 slots (28.8, 36.1, 40.0 and 18.2 s at 24 / 8 / 8 / 21)
-    ssm_counts, ssm_metrics = timed("4b", serve_mamba2, 12)
+    ssm_counts, ssm_metrics = timed("4b", serve_mamba2, 6)
     contig_counts, contig_metrics = timed("4c", serve_contiguous_qwen2)
     migration = timed("4d", live_migration)
     mixtral = timed("4e", serve_mixtral)
@@ -3495,19 +3845,25 @@ def main(argv=None) -> int:
     # at 62 layers, 41 s at 31 and 25 s at 16, 4h 78–92 s at 4; the command
     # 615 s and 628 s on slower hosts)
     mla = timed("4g", serve_mla, dataclasses.replace(get_config("minicpm3-4b"),
-                                                     n_layers=8))
+                                                     n_layers=4))
     ring = timed("4h", serve_ring, dataclasses.replace(mixtral_full, n_layers=1),
                  mixtral_full)
     # whisper's phases fit under 555 s with gemma2 at 8 of 42 layers and
     # zamba2 at 21 of 81 slots (3 groups + the 3-layer tail), cut as
     # minicpm3 and the ring were (4i took 85 s and 4j 61 s whole; 62 s and
     # 27 s at 16 layers and 33 slots, the command 519 s)
-    gemma2 = timed("4i", serve_gemma2, get_config("gemma2-9b"), 4)
+    gemma2 = timed("4i", serve_gemma2, get_config("gemma2-9b"), 2)
     zamba2 = timed("4j", serve_zamba2, get_config("zamba2-7b"), 15)
     whisper = timed("4k", serve_whisper, get_config("whisper-tiny"))
+    # training's phase 4o (31 s; the command 530.1 s on a host where 4n took
+    # 85.3 s against 74.8 in PR 23's final run) cut 4l and 4n to 14 of 28
+    # layers and gemma2 in 4i to one pair (15.2, 85.3 and 28.7 s before);
+    # at 532.4 s on a slower host it also cut mamba2 in 4b to 6 layers,
+    # mixtral in 4e to 2 and minicpm3 in 4g to 4 (17.2, 18.2 and 15.3 s)
     faults = timed("4l", serve_faults)
     autopoiesis = timed("4m", serve_autopoiesis)
     sharded = timed("4n", serve_sharded)
+    training = timed("4o", train_on_card)
     # whisper's main path adds its launches to rows 2-4: serving, forward
     # with frames and the encoder-filled steps, each counted from zero,
     w_counts = [whisper["launches"], whisper["forward_launches"],
@@ -3515,8 +3871,9 @@ def main(argv=None) -> int:
     # and the paged qwen2 paths of 4l (both faulted pools) and 4m to rows 1-3
     q_counts = [faults["salvage"]["launches"], faults["deny-export"]["launches"],
                 autopoiesis["launches"]]
-    # and the sharded and pipelined paths of 4n (qwen2 and the EP mixtral)
-    q_counts.append(sharded["launches"])
+    # and the sharded and pipelined paths of 4n (qwen2 and the EP mixtral),
+    # and the training forwards of 4o to rows 2-3
+    q_counts += [sharded["launches"], training["launches"]]
     launches = {"paged_flash_decode": counts["paged_flash_decode"]
                 + sum(c["paged_flash_decode"] for c in q_counts),
                 "flash_attention": counts["flash_attention"]
@@ -3556,6 +3913,7 @@ def main(argv=None) -> int:
     # further from f32 there (0.0240), so the card is held to the CPU's own
     # bf16 spread, as zamba2 is
     card_vs_cpu(torch, "whisper-tiny", "float32", elementwise=False, n_layers=4, spread=True)
+    card_vs_cpu_train(torch)
     print(f"[time] phase 5: {time.monotonic() - t5:.1f}s")
 
     # phase 6
@@ -3570,6 +3928,7 @@ def main(argv=None) -> int:
                       "mixtral": mixtral, "registry": registry, "mla": mla, "ring": ring,
                       "gemma2": gemma2, "zamba2": zamba2, "whisper": whisper,
                       "faults": faults, "autopoiesis": autopoiesis, "sharded": sharded,
+                      "training": training, "backward": rows["backward"],
                       "shard_kernels": rows["shard_kernels"],
                       "whisper_kernels": rows["whisper"], "head_dims": rows["head_dims"],
                       "moe_gmm_shapes": rows["moe_gmm_shapes"],

@@ -2,6 +2,8 @@
 
 A tensor on the card goes to the CUDA kernel; a tensor on the CPU goes to
 the plain PyTorch version.  Nothing else: no fall-back between the two.
+The kernel has no gradient yet: on a CUDA tensor that requires grad the op
+raises ``NotImplementedError`` (the plain version differentiates on the CPU).
 Unlike the JAX wrapper there are no block sizes: the kernel masks the
 token axis, so any C runs unpadded.
 """
@@ -9,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import no_grad_on_card
 from repro_torch.kernels.moe_gmm import kernel
 from repro_torch.kernels.moe_gmm.ref import moe_gmm_ref
 
@@ -18,6 +21,7 @@ def moe_gmm(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     """x (E, C, D), possibly with expert stride 0; w_gate, w_up (E, D, F);
     w_down (E, F, D).  Returns (E, C, D)."""
     if x.device.type == "cuda":
+        no_grad_on_card("moe_gmm", x, w_gate, w_up, w_down)
         return kernel.moe_gmm(x, w_gate, w_up, w_down)
     if x.device.type == "cpu":
         return moe_gmm_ref(x, w_gate, w_up, w_down)

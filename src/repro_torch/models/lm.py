@@ -16,7 +16,9 @@ its decoder ``layers``, whose layers carry a cross-attention.  A moe layer's
 FFN is chosen by the ``moe_impl`` flag (:mod:`repro_torch.models.flags`)
 on every call.
 Weights come from :func:`init_params` (seeded ``torch.Generator``) or from
-JAX weights through :func:`params_from_jax` (numpy in, no JAX import).
+JAX weights through :func:`params_from_jax` (numpy in, no JAX import);
+:func:`params_to_jax` lays the port's named tensors out as the JAX pytree
+again (checkpoints either package resumes).
 
 Two caches, as in the JAX package:
 
@@ -291,9 +293,11 @@ _STACKS = {"layers": 1, "layer_pairs": 2, "mamba_groups": 2, "mamba_tail": 1,
            "shared_attn": 0, "enc_layers": 1, "enc_norm": 0}
 
 
-def _flatten_jax(cfg: ModelConfig, np_params: Mapping) -> Dict[str, np.ndarray]:
-    """JAX pytree (stacks with their leading axes, :data:`_STACKS`) → torch
-    names, one index per stacked axis."""
+def named_from_jax(cfg: ModelConfig, np_params: Mapping) -> Dict[str, object]:
+    """A JAX-layout pytree (stacks with their leading axes, :data:`_STACKS`;
+    numpy or tensor leaves) → the port's parameter names, one index per
+    stacked axis (the map behind :func:`params_from_jax`, inverted by
+    :func:`params_to_jax`)."""
     flat: Dict[str, np.ndarray] = {"embed": np_params["embed"],
                                    "final_norm.scale": np_params["final_norm"]["scale"]}
     for top in ("lm_head", "enc_pos"):
@@ -305,7 +309,7 @@ def _flatten_jax(cfg: ModelConfig, np_params: Mapping) -> Dict[str, np.ndarray]:
             for k, v in node.items():
                 walk(top, depth, f"{prefix}.{k}" if prefix else k, v)
             return
-        arr = np.asarray(node)
+        arr = node if isinstance(node, torch.Tensor) else np.asarray(node)
         for idx in np.ndindex(*arr.shape[:depth]):
             flat[".".join([top, *map(str, idx), prefix])] = arr[idx]
     for top, depth in _STACKS.items():
@@ -320,7 +324,7 @@ def params_from_jax(cfg: ModelConfig, np_params: Mapping,
     arrays (``jax.tree.map(np.asarray, params)``): a plain copy, since both
     keep the ``(d_in, d_out)`` layout.  Takes numpy only — no JAX import."""
     model = LM(cfg, device)
-    flat = _flatten_jax(cfg, np_params)
+    flat = named_from_jax(cfg, np_params)
     names = dict(model.named_parameters())
     if set(flat) != set(names):
         raise ValueError(f"parameter mismatch: missing {sorted(set(names) - set(flat))}"
@@ -333,6 +337,38 @@ def params_from_jax(cfg: ModelConfig, np_params: Mapping,
                                  f"{tuple(p.shape)}")
             p.copy_(src)
     return model
+
+
+def params_to_jax(cfg: ModelConfig, named: Mapping[str, object],
+                  convert: Optional[Callable] = None) -> Dict[str, object]:
+    """The inverse of :func:`params_from_jax`'s name map: tensors (or numpy
+    arrays) under the port's parameter names — the model's, or any dict
+    keyed like them, as the optimizer's moments are — laid out as the JAX
+    parameter pytree, each stack with its leading axes (:data:`_STACKS`;
+    ``torch.stack`` or ``np.stack``).  ``convert`` is applied to each leaf
+    as soon as it is stacked (a host copy keeps one stack on the device at
+    a time)."""
+    groups: Dict[Tuple[str, ...], Dict[Tuple[int, ...], object]] = {}
+    for name, leaf in named.items():
+        parts = name.split(".")
+        depth = _STACKS.get(parts[0], 0)
+        idx = tuple(int(i) for i in parts[1:1 + depth])
+        groups.setdefault((parts[0], *parts[1 + depth:]), {})[idx] = leaf
+    tree: Dict[str, object] = {}
+    for path, items in groups.items():
+        depth = _STACKS.get(path[0], 0)
+        if depth:
+            shape = tuple(max(i[a] for i in items) + 1 for a in range(depth))
+            leaves = [items[i] for i in np.ndindex(*shape)]
+            stack = torch.stack if isinstance(leaves[0], torch.Tensor) else np.stack
+            leaf = stack(leaves).reshape(*shape, *leaves[0].shape)
+        else:
+            leaf = items[()]
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf if convert is None else convert(leaf)
+    return tree
 
 
 def _to_torch(arr) -> torch.Tensor:

@@ -1,0 +1,186 @@
+"""Fault-tolerant training loop (port of ``src/repro/training/trainer.py``).
+
+* microbatch gradient accumulation: each microbatch's gradient
+  (``torch.autograd.grad``, in the parameters' dtype) is added into an f32
+  buffer per parameter, then the sum is divided by the count — never
+  accumulated in a bf16 ``.grad``;
+* NaN/inf guard: when the global gradient norm or the loss is not finite
+  the update is skipped, parameters and optimizer state (its step counter
+  included) unchanged, and counted;
+* async atomic checkpointing + resume from ``LATEST`` (restart-safe data
+  pipeline), in the reference's on-disk layout and leaf order;
+* straggler monitor (per-step wall-clock watchdog).
+
+The model's parameters are trained in place, so the trainer turns on
+``requires_grad`` for the model it trains; serving models keep it off.  On
+the card the forward runs the RMSNorm and flash-attention kernels, whose
+gradients are explicit PyTorch ops; the moe, ssm and hybrid families raise
+there (``moe_gmm`` and the SSD scan have no gradient on the card yet), and
+train on the CPU, where the plain versions differentiate.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import lm, zoo
+from repro_torch.training import checkpoint as ckpt_lib
+from repro_torch.training import data as data_lib
+from repro_torch.training import optim
+
+
+@dataclass
+class TrainConfig:
+    steps: int = 100
+    microbatches: int = 1
+    ckpt_every: int = 50
+    ckpt_dir: Optional[str] = None
+    log_every: int = 10
+    straggler_factor: float = 5.0       # step > factor × median ⇒ flag
+    opt: optim.AdamWConfig = field(default_factory=optim.AdamWConfig)
+
+
+@dataclass
+class TrainReport:
+    losses: List[float] = field(default_factory=list)
+    skipped_nan: int = 0
+    straggler_events: int = 0
+    resumed_from: Optional[int] = None
+    steps_done: int = 0
+
+
+def make_accum_train_step(cfg: ModelConfig, opt_cfg: optim.AdamWConfig,
+                          microbatches: int):
+    """``train_step(model, opt_state, batch) -> (loss, opt_state, ok)``: the
+    batch split into ``microbatches`` equal row blocks, their gradients
+    averaged in f32, one guarded AdamW update written into the model's
+    parameters (which must require grad) when ``ok``."""
+
+    def train_step(model, opt_state, batch):
+        params = dict(model.named_parameters())
+        plist = list(params.values())
+        if microbatches <= 1:
+            loss = zoo.loss_fn(model, cfg, batch)
+            grads = dict(zip(params, torch.autograd.grad(loss, plist)))
+            loss = loss.detach()
+        else:
+            n = batch["tokens"].shape[0] // microbatches
+            grads = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                     for k, p in params.items()}
+            loss = torch.zeros((), dtype=torch.float32, device=plist[0].device)
+            for i in range(microbatches):
+                mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+                l = zoo.loss_fn(model, cfg, mb)
+                for acc, g in zip(grads.values(), torch.autograd.grad(l, plist)):
+                    acc.add_(g)
+                loss = loss + l.detach()
+            for g in grads.values():
+                g.div_(microbatches)
+            loss = loss / microbatches
+        # NaN guard: skip the update when the gradient is poisoned
+        ok = torch.isfinite(optim.global_norm(grads)) & torch.isfinite(loss)
+        if bool(ok):
+            new_params, opt_state = optim.apply_updates(opt_cfg, params, grads,
+                                                        opt_state)
+            with torch.no_grad():
+                for k, p in params.items():
+                    p.copy_(new_params[k])
+        return loss, opt_state, ok
+
+    return train_step
+
+
+def state_tree(cfg: ModelConfig, params: Dict[str, torch.Tensor],
+               opt_state: Dict[str, object], convert: Optional[Callable] = None):
+    """``(params, opt_state)`` laid out as the reference's pytree
+    (:func:`repro_torch.models.lm.params_to_jax`), the checkpoint's tree."""
+    jax_like = lambda named: lm.params_to_jax(cfg, named, convert)
+    step = opt_state["step"]
+    return (jax_like(params), {"m": jax_like(opt_state["m"]),
+                               "step": step if convert is None else convert(step),
+                               "v": jax_like(opt_state["v"])})
+
+
+def _restore(cfg: ModelConfig, ckpt_dir: str, params: Dict[str, torch.Tensor],
+             opt_state: Dict[str, object]) -> None:
+    """Copy the latest checkpoint into ``params`` and ``opt_state`` in place."""
+    meta = lambda named: {k: torch.empty(t.shape, dtype=t.dtype, device="meta")
+                          for k, t in named.items()}
+    like = state_tree(cfg, meta(params), {"m": meta(opt_state["m"]),
+                                          "step": opt_state["step"],
+                                          "v": meta(opt_state["v"])})
+    (p_tree, o_tree), _, _ = ckpt_lib.restore(ckpt_dir, like)
+    with torch.no_grad():
+        for dst, tree in ((params, p_tree), (opt_state["m"], o_tree["m"]),
+                          (opt_state["v"], o_tree["v"])):
+            for k, t in lm.named_from_jax(cfg, tree).items():
+                dst[k].copy_(t)
+        opt_state["step"].copy_(o_tree["step"])
+
+
+def train(cfg: ModelConfig, tcfg: TrainConfig,
+          data_cfg: Optional[data_lib.DataConfig] = None,
+          params: Optional[lm.LM] = None, seed: int = 0,
+          on_step: Optional[Callable[[int, float], None]] = None,
+          device: DeviceLike = None) -> TrainReport:
+    """Train ``params`` (a model, trained in place; default: fresh weights
+    drawn from a generator seeded ``seed`` on ``device``) for
+    ``tcfg.steps`` steps.  ``device=None`` means the card; a given model
+    trains where it lies."""
+    report = TrainReport()
+    data_cfg = data_cfg or data_lib.DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=128, global_batch=8)
+    if params is None:
+        dev = resolve_device(device)
+        params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    elif device is not None and resolve_device(device) != params.device:
+        raise ValueError(f"the model lies on {params.device}, not on {device}")
+    model, dev = params, params.device
+    named = dict(model.named_parameters())
+    for p in named.values():
+        p.requires_grad_(True)
+    opt_state = optim.init_state(named)
+    start_step = 0
+
+    ckpt = None
+    if tcfg.ckpt_dir:
+        ckpt = ckpt_lib.AsyncCheckpointer(tcfg.ckpt_dir)
+        last = ckpt_lib.latest_step(tcfg.ckpt_dir)
+        if last is not None:
+            _restore(cfg, tcfg.ckpt_dir, named, opt_state)
+            start_step = last
+            report.resumed_from = last
+
+    def save(step: int, loss) -> None:
+        ckpt.save(step, state_tree(cfg, named, opt_state, ckpt_lib.to_host),
+                  extra={"loss": loss})
+
+    step_fn = make_accum_train_step(cfg, tcfg.opt, tcfg.microbatches)
+    durations: List[float] = []
+    for step in range(start_step, tcfg.steps):
+        t0 = time.monotonic()
+        batch = {k: v.to(dev) for k, v in data_lib.batch_at(data_cfg, step).items()}
+        loss, opt_state, ok = step_fn(model, opt_state, batch)
+        loss = float(loss)
+        dt = time.monotonic() - t0
+        if durations and dt > tcfg.straggler_factor * (
+                sorted(durations)[len(durations) // 2]):
+            report.straggler_events += 1
+        durations.append(dt)
+        if not bool(ok):
+            report.skipped_nan += 1
+        report.losses.append(loss)
+        report.steps_done = step + 1
+        if on_step:
+            on_step(step, loss)
+        if ckpt and (step + 1) % tcfg.ckpt_every == 0:
+            save(step + 1, loss)
+    if ckpt:
+        save(tcfg.steps, report.losses[-1] if report.losses else None)
+        ckpt.wait()
+    return report
