@@ -79,7 +79,7 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
          fourth, then the planted ``BAD_REQUEST_SOURCE`` canaried over 2
          more and rolled back; every interval measured, no page leaks;
      4n. sharded and pipelined replicas on 4 logical devices of the card:
-         qwen2-1.5b (14 of 28 layers) on paged engines × 8 slots at tp 1, tp 2 (the
+         qwen2-1.5b (12 of 28 layers) on paged engines × 8 slots at tp 1, tp 2 (the
          head-sharded pool), tp 4 (the recorded KV-head fallback), dp 2 ×
          tp 2, pp 2, pp 4 and pp 2 × tp 2, each token held to tp 1's or a
          judged bf16 tie, launches per decode dispatch L·shards; a re-cut
@@ -87,16 +87,26 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
          logical set (engines counted by class, the short-allocator degrade
          counted); mixtral-8x7b (2 of 32 layers) tp 2 → EP held to the
          dense mix;
-     4o. training: qwen2-1.5b whole (28 layers, bf16) through
-         ``repro_torch.training.trainer.train`` with ``launch/train.py``'s
-         defaults (B 8, S 128, 2 microbatches, AdamW) for 8 steps, losses
-         finite, no step skipped, exactly 114 RMSNorm and 56 flash-attention
-         launches a step and no other kernel; host wall, tokens/s, one
-         profiled step (idle share, forward kernels against the backward's
-         ops) against its bound; the int8 ``compressed_allreduce`` of the
-         trained gradients over 4 logical devices of the card; a resume at 1
-         layer equal bit for bit to an uninterrupted run; a mamba2 step
-         refused (no SSD-scan gradient on the card);
+     4o. training: qwen2-1.5b whole (28 layers, bf16 weights on f32
+         masters) through ``repro_torch.training.trainer.train`` with
+         ``launch/train.py``'s defaults (B 8, S 128, 2 microbatches, AdamW)
+         for 8 steps over the reference's threefry batches under the
+         default ``remat`` "full": losses finite, no step skipped, the
+         masters f32 and each weight their rounding, exactly (4L+1)·2 =
+         226 RMSNorm and 2L·2 = 112 flash-attention launches a step and no
+         other kernel; host wall, tokens/s; one profiled step each under
+         "full", "none" (114 and 56) and "dots" (226 and 112), each gated
+         exactly, with its host wall, idle share, peak memory and the
+         forward kernels against the backward's ops, against its bound;
+         the int8 ``compressed_allreduce`` of the trained gradients over 4
+         logical devices of the card; a resume at 1 layer equal bit for bit
+         to an uninterrupted run; a mamba2 step refused (no SSD-scan
+         gradient on the card);
+     4p. the dry run: ``launch/dryrun.py`` over 10 archs × 4 shapes × both
+         production meshes on shapes only (statuses as ``shape_applicable``
+         says, no launch, no allocation), then 4o's cell on one device,
+         whose argument bytes plus working copy equal exactly the bytes 4o's
+         trainer held on the card;
   5. the port on the card (bf16, kernels) against the port on the CPU (f32,
      plain versions) for one prefill chunk and 8 decode steps at full
      width: qwen2-1.5b, mamba2-1.3b and minicpm3-4b at 2 layers,
@@ -109,7 +119,9 @@ It imports nothing of JAX or the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
@@ -3030,7 +3042,7 @@ def serve_autopoiesis(torch, card: str) -> dict:
 def serve_sharded(torch, card: str) -> dict:
     """Phase 4n: sharded and pipelined replicas on 4 logical devices (on
     ``cuda:0`` with one card, on distinct cards otherwise).  qwen2-1.5b
-    at 14 of 28 layers (d 1536, H 12, Hkv 2, D 128, bf16, seeded weights)
+    at 12 of 28 layers (d 1536, H 12, Hkv 2, D 128, bf16, seeded weights)
     on paged engines × 8 slots (page 16): tp 1 (the plain engine every run
     is held to), tp 2 (the head-sharded pool and decode), tp 4 (the
     recorded ``kv_heads`` fallback: replicated pool, row-table decode),
@@ -3058,7 +3070,7 @@ def serve_sharded(torch, card: str) -> dict:
     from repro_torch.serving.sharded import (PipelinedEngine, ShardedEngine,
                                              SubmeshAllocator)
 
-    cfg = dataclasses.replace(get_config("qwen2-1.5b"), n_layers=14)   # of 28
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"), n_layers=12)   # of 28
     L, MAX_NEW, REPEAT_NEW = cfg.n_layers, 16, 4
     # prefill chunks of up to 256 tokens: a 128–512-token prompt takes 1–5
     # dispatches (up to 8 at 64), each running every shard's layers
@@ -3338,17 +3350,24 @@ def serve_sharded(torch, card: str) -> dict:
 def train_on_card(torch, card: str) -> dict:
     """qwen2-1.5b whole (28 layers, bf16, tied) trained through
     ``repro_torch.training.trainer.train`` with ``launch/train.py``'s defaults
-    (B 8, S 128, 2 microbatches, lr 3e-3, warmup 20) for 8 steps: every loss
-    finite, no skipped step, and exactly (2L+1)·2 RMSNorm and L·2
-    flash-attention launches a step (two microbatch forwards; the backward
-    launches no kernel) and no other kernel.  Per step: host wall and tokens/s;
-    one more step under ``torch.profiler``: device busy and idle share, the
-    forward kernels' device time against the backward ops' (their profiler
-    ranges), and the bound 6·N·tokens / 989 TFLOP/s + the optimizer's bytes /
-    3.35 TB/s.  Then the int8 ``compressed_allreduce`` of the trained model's
-    gradients over 4 data shards on 4 logical devices of the card, a resume
-    check at 1 of 28 layers (3 steps, then 6 resuming from their checkpoint,
-    equal bit for bit to 6 uninterrupted steps) and a mamba2 step refused."""
+    (B 8, S 128, 2 microbatches, lr 3e-3, warmup 20) for 8 steps on f32
+    master weights over the reference's threefry batches, under the default
+    ``remat`` "full": every loss finite, no skipped step, the masters f32 and
+    each bf16 weight their rounding, and exactly (4L+1)·2 RMSNorm and 2L·2
+    flash-attention launches a step (two microbatch forwards, each layer's
+    forward run again in the backward; the final norm is outside the remat
+    units) and no other kernel.  Per step: host wall and tokens/s.  Then one
+    profiled step under each of "full", "none" and "dots" (a fresh optimizer
+    state each: the same work), each with its exact launch gate ("dots"
+    recomputes the layers' forwards too, "none" runs (2L+1)·2 and L·2):
+    host wall, device busy and idle share, peak memory, kernel groups, and
+    under "full" (which also traces the host) the backward ops' and AdamW's
+    device time (their profiler ranges), against the bound 6·N·tokens / 989
+    TFLOP/s + the optimizer's bytes / 3.35 TB/s.
+    Then the int8 ``compressed_allreduce`` of the trained model's gradients
+    over 4 data shards on 4 logical devices of the card, a resume check at
+    1 of 28 layers (3 steps, then 6 resuming from their checkpoint, equal bit
+    for bit to 6 uninterrupted steps) and a mamba2 step refused."""
     import shutil
     import tempfile
 
@@ -3360,7 +3379,7 @@ def train_on_card(torch, card: str) -> dict:
     from repro_torch.kernels.rmsnorm import ops as rms_o
     from repro_torch.launch import train as train_cli
     from repro_torch.launch.mesh import Mesh, logical_devices
-    from repro_torch.models import lm, zoo
+    from repro_torch.models import flags, lm, zoo
     from repro_torch.training import data as data_lib, optim
     from repro_torch.training.trainer import TrainConfig, make_accum_train_step, train
 
@@ -3368,7 +3387,9 @@ def train_on_card(torch, card: str) -> dict:
     cfg, tcfg, dcfg = train_cli.configs(args)
     need(cfg.name == "qwen2-1.5b" and cfg.n_layers == 28 and cfg.tie_embeddings,
          f"unexpected config {cfg.name}")
+    need(flags.get_flag("remat") == "full", f"remat {flags.get_flag('remat')}, not full")
     model = lm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    named = dict(model.named_parameters())
     n_params = sum(p.numel() for p in model.parameters())
     tokens = dcfg.global_batch * dcfg.seq_len
     torch.cuda.synchronize()
@@ -3377,68 +3398,103 @@ def train_on_card(torch, card: str) -> dict:
     stamps = [time.perf_counter()]
     report = train(cfg, tcfg, dcfg, params=model,
                    on_step=lambda s_, l_: stamps.append(time.perf_counter()))
+    masters = report.masters
     counts = read_launches()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     walls = [b - a for a, b in zip(stamps, stamps[1:])]
-    L, steps = cfg.n_layers, tcfg.steps
-    want = {"rmsnorm": (2 * L + 1) * tcfg.microbatches * steps,
-            "flash_attention": L * tcfg.microbatches * steps}
+    L, mb, steps = cfg.n_layers, tcfg.microbatches, tcfg.steps
+    per_step = {"full": {"rmsnorm": (4 * L + 1) * mb, "flash_attention": 2 * L * mb},
+                "dots": {"rmsnorm": (4 * L + 1) * mb, "flash_attention": 2 * L * mb},
+                "none": {"rmsnorm": (2 * L + 1) * mb, "flash_attention": L * mb}}
+    want = {k: v * steps for k, v in per_step["full"].items()}
     need(len(report.losses) == steps and all(math.isfinite(x) for x in report.losses),
          f"non-finite or missing losses {report.losses}")
     need(report.skipped_nan == 0, f"{report.skipped_nan} steps skipped")
     need(counts == {**{k: 0 for k in counts}, **want},
          f"training launches {counts}, want {want} and no other kernel")
+    f32 = all(m.dtype == torch.float32 and m.device.type == "cuda" for m in masters.values())
+    rounded = sum(torch.equal(p.detach(), masters[k].to(p.dtype)) for k, p in named.items())
+    own = sum(p.dtype == torch.float32 for p in named.values())
+    need(f32 and rounded == len(named), f"masters f32 {f32}; {rounded}/{len(named)} "
+         f"weights equal their master's rounding")
     steady = sorted(walls[1:])[len(walls[1:]) // 2]
-    print(f"[train] qwen2-1.5b whole ({n_params / 1e9:.4f} B parameters, bf16), B "
-          f"{dcfg.global_batch}, S {dcfg.seq_len}, {tcfg.microbatches} microbatches, "
-          f"{steps} steps: losses {', '.join(f'{x:.4f}' for x in report.losses)}; "
-          f"host wall per step {', '.join(f'{w:.3f}' for w in walls)} s (median of "
-          f"steps 2-{steps} {steady:.3f} s, {tokens / steady:.0f} tokens/s); peak "
-          f"memory {peak_gib:.2f} GiB; launches {counts} (per step "
-          f"{counts['rmsnorm'] // steps} RMSNorm, {counts['flash_attention'] // steps} "
-          f"flash attention)")
+    print(f"[train] qwen2-1.5b whole ({n_params / 1e9:.4f} B parameters, bf16 weights on "
+          f"f32 masters), remat full, B {dcfg.global_batch}, S {dcfg.seq_len}, {mb} "
+          f"microbatches, {steps} steps over the threefry batches: losses "
+          f"{', '.join(f'{x:.4f}' for x in report.losses)}; host wall per step "
+          f"{', '.join(f'{w:.3f}' for w in walls)} s (median of steps 2-{steps} "
+          f"{steady:.3f} s, {tokens / steady:.0f} tokens/s); peak memory {peak_gib:.2f} "
+          f"GiB; launches {counts} (per step {counts['rmsnorm'] // steps} RMSNorm = "
+          f"(4L+1)·{mb}, {counts['flash_attention'] // steps} flash attention = 2L·{mb})")
+    print(f"[train] masters: {len(masters)} leaves, all f32 on the card ({own} f32 "
+          f"weights, the norm scales, are their own master); {rounded}/{len(named)} model "
+          f"weights equal "
+          f"their master's rounding; held on the card at the last step: "
+          f"{report.held_bytes} bytes")
 
-    # one more step under the profiler (a fresh optimizer state: the same work)
-    named = dict(model.named_parameters())
-    step_fn = make_accum_train_step(cfg, tcfg.opt, tcfg.microbatches)
-    batch = {k: v.cuda() for k, v in data_lib.batch_at(dcfg, steps).items()}
-    state = optim.init_state(named)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step_fn(model, state, batch)
-        torch.cuda.synchronize()
-        pwall = time.perf_counter() - t0
-    del state
-    busy, groups = busy_by_group(prof)
+    # one more step under the profiler per remat policy (a fresh optimizer
+    # state each: the same work)
+    step_fn = make_accum_train_step(cfg, tcfg.opt, mb)
+    batch = {k: v.to("cuda", torch.int32)
+             for k, v in data_lib.batch_at(dcfg, steps).items()}
 
     def kernel_ms(op):          # device time of the kernels an op and its children launched
         return (sum(k.duration for k in op.kernels) / 1e3
                 + sum(kernel_ms(c) for c in op.cpu_children))
 
-    ranges = {}
-    for e in prof.events():
-        if e.name in (fa_o.BACKWARD_RANGE, rms_o.BACKWARD_RANGE, optim.RANGE):
-            ranges[e.name] = ranges.get(e.name, 0.0) + sum(kernel_ms(c) for c in
-                                                           e.cpu_children)
-    bwd = {"flash_attention": ranges.get(fa_o.BACKWARD_RANGE, 0.0),
-           "rmsnorm": ranges.get(rms_o.BACKWARD_RANGE, 0.0)}
-    opt_ms = ranges.get(optim.RANGE, 0.0)
-    opt_bytes = 24 * n_params      # p bf16 in + out, f32 grad in, m and v in + out
+    # f32 master in + out, f32 gradient in, m and v in + out, bf16 weight out
+    opt_bytes = 30 * n_params
     b_model = 6 * n_params * tokens / PEAK_FLOPS["bfloat16"] * 1e3
     b_opt = opt_bytes / PEAK_BYTES * 1e3
-    gtxt = ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in
-                     sorted(groups.items(), key=lambda kv: -kv[1]))
-    idle = 1 - busy / pwall
-    print(f"[train] profiled step: host wall {pwall * 1e3:.2f} ms, device busy "
-          f"{busy * 1e3:.2f} ms (idle {100 * idle:.1f}%); kernels: {gtxt}; forward "
-          f"kernels flash_attention {groups.get('flash_attention', 0) * 1e3:.2f} ms, "
-          f"rmsnorm {groups.get('rmsnorm', 0) * 1e3:.2f} ms; backward ops (their "
-          f"profiler ranges) flash attention {bwd['flash_attention']:.2f} ms, rmsnorm "
-          f"{bwd['rmsnorm']:.2f} ms; AdamW (its range) {opt_ms:.2f} ms; bound "
-          f"{b_model:.3f} ms (6·N·tokens at 989 TFLOP/s)"
-          f" + {b_opt:.3f} ms (optimizer {opt_bytes / 1e9:.2f} GB at 3.35 TB/s) = "
-          f"{b_model + b_opt:.3f} ms")
+    policies = {}
+    for pol in ("full", "none", "dots"):
+        # the host ops and their ranges are traced under "full" alone: the
+        # CPU trace of a step costs seconds to read back
+        acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if pol == "full" else [])
+        state = optim.init_state(masters)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        with flags.scoped(remat=pol), profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            step_fn(model, state, batch, masters)
+            torch.cuda.synchronize()
+            pwall = time.perf_counter() - t0
+        got = read_launches()
+        pol_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        del state
+        need(got == {**{k: 0 for k in got}, **per_step[pol]},
+             f"remat {pol}: a step launched {got}, want {per_step[pol]} and no other kernel")
+        busy, groups = busy_by_group(prof)
+        ranges = {}
+        for e in (prof.events() if pol == "full" else ()):
+            if e.name in (fa_o.BACKWARD_RANGE, rms_o.BACKWARD_RANGE, optim.RANGE):
+                ranges[e.name] = ranges.get(e.name, 0.0) + sum(kernel_ms(c) for c in
+                                                               e.cpu_children)
+        bwd = {"flash_attention": ranges.get(fa_o.BACKWARD_RANGE, 0.0),
+               "rmsnorm": ranges.get(rms_o.BACKWARD_RANGE, 0.0)}
+        opt_ms = ranges.get(optim.RANGE, 0.0)
+        idle = 1 - busy / pwall
+        gtxt = ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in
+                         sorted(groups.items(), key=lambda kv: -kv[1]))
+        host = (f"backward ops (their profiler ranges) flash attention "
+                f"{bwd['flash_attention']:.2f} ms, rmsnorm {bwd['rmsnorm']:.2f} ms; AdamW "
+                f"(its range) {opt_ms:.2f} ms" if pol == "full"
+                else "device activity traced alone (no host ranges)")
+        print(f"[train] profiled step, remat {pol}: host wall {pwall * 1e3:.2f} ms, device "
+              f"busy {busy * 1e3:.2f} ms (idle {100 * idle:.1f}%), peak memory "
+              f"{pol_peak:.2f} GiB; launches {per_step[pol]} (gate met); kernels: {gtxt}; "
+              f"forward kernels flash_attention {groups.get('flash_attention', 0) * 1e3:.2f} "
+              f"ms, rmsnorm {groups.get('rmsnorm', 0) * 1e3:.2f} ms; {host}; bound "
+              f"{b_model:.3f} ms (6·N·tokens at 989 TFLOP/s) + {b_opt:.3f} ms (optimizer "
+              f"{opt_bytes / 1e9:.2f} GB at 3.35 TB/s) = {b_model + b_opt:.3f} ms")
+        policies[pol] = dict(wall_ms=pwall * 1e3, busy_ms=busy * 1e3, idle=idle,
+                             peak_gib=pol_peak, launches=got,
+                             groups_ms={k: v * 1e3 for k, v in groups.items()},
+                             backward_ms=bwd, adamw_ms=opt_ms)
+    del masters
+    report.masters = {}
+    torch.cuda.empty_cache()
 
     # int8 compressed all-reduce of the trained model's gradients: 4 data
     # shards of 2 sequences, one per logical device of the card
@@ -3519,12 +3575,84 @@ def train_on_card(torch, card: str) -> dict:
     torch.cuda.empty_cache()
     return dict(losses=report.losses, step_wall_s=walls, median_step_s=steady,
                 tokens_per_s=tokens / steady, peak_gib=peak_gib, params=n_params,
-                launches=counts, profiled_wall_ms=pwall * 1e3, busy_ms=busy * 1e3,
-                idle=idle, groups_ms={k: v * 1e3 for k, v in groups.items()},
-                backward_ms=bwd, adamw_ms=opt_ms, bound_ms=b_model + b_opt, bound_model_ms=b_model,
+                launches=counts, held_bytes=report.held_bytes, shape=(dcfg.global_batch,
+                                                                      dcfg.seq_len),
+                profiled=policies, bound_ms=b_model + b_opt, bound_model_ms=b_model,
                 bound_optimizer_ms=b_opt, compress_wall_ms=c_wall * 1e3,
                 compress_worst=worst, resume_losses=rest.losses, resume_wall_s=r_wall,
                 refusal=refusal)
+
+
+# --------------------------------------------------------------------------- #
+# phase 4p: the dry run
+# --------------------------------------------------------------------------- #
+def dryrun_cells(torch, card: str, training: dict) -> dict:
+    """``launch/dryrun.py`` over all 10 archs × 4 shapes × both production
+    meshes into a temporary directory, on shapes only: status ``ok`` for
+    every cell ``shape_applicable`` admits and ``skipped`` with the
+    reference's reason for the others, no kernel launched and no byte
+    allocated on the card.  Then a train cell at 4o's shape (B 8, S 128)
+    built by the dry run's own functions over a one-device mesh: its
+    argument bytes (f32 params, m, v, step, int32 batch) plus its
+    ``working_copy_bytes`` (the bf16 weights) must equal exactly the bytes
+    of the tensors 4o's trainer held on the card."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import ShapeSpec, all_cells
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import train as train_cli
+
+    zero_launches()
+    torch.cuda.synchronize()
+    alloc = torch.cuda.memory_allocated()
+    tmp = tempfile.mkdtemp(prefix="dryrun_", dir=ROOT / "build")
+    log = io.StringIO()          # one line a cell: kept out of the command's output
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            rc = dryrun.main(["--arch", "all", "--shape", "all", "--mesh", "both",
+                              "--out", tmp, "--force"])
+        wall = time.perf_counter() - t0
+        recs = {(r["arch"], r["shape"], r["mesh"]): r for r in
+                (json.loads(p.read_text()) for p in Path(tmp).glob("*.json"))}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    need(rc == 0 and len(recs) == 80, f"dry run exit {rc}, {len(recs)} records of 80")
+    ok_cells = 0
+    for arch, shape, ok, why in all_cells():
+        for mesh in ("pod16x16", "pod2x16x16"):
+            r = recs[(arch, shape, mesh)]
+            need(r["status"] == ("ok" if ok else "skipped") and r["skip_reason"] == why,
+                 f"{arch} × {shape} × {mesh}: {r['status']} ({r.get('skip_reason')}), "
+                 f"want {'ok' if ok else 'skipped'} ({why})")
+            ok_cells += ok
+    launched = read_launches()
+    need(not any(launched.values()), f"the dry run launched {launched}")
+    need(torch.cuda.memory_allocated() == alloc, "the dry run allocated on the card")
+    print(f"[dryrun] 80 records in {wall:.2f} s ({ok_cells} ok, {80 - ok_cells} skipped "
+          f"with the reference's reasons, {len(log.getvalue().splitlines())} lines of its "
+          f"own output); no kernel launched, no byte allocated on the card")
+    sample = recs[("qwen2-1.5b", "train_4k", "pod16x16")]
+    print(f"[dryrun] qwen2-1.5b × train_4k × pod16x16: {json.dumps(sample)}")
+
+    args = train_cli.parser().parse_args(["--full", "--steps", "8"])
+    cfg, _, dcfg = train_cli.configs(args)
+    B, S = training["shape"]
+    rec = dryrun.cell_record(cfg, ShapeSpec("train_4o", S, B, "train"),
+                             dryrun.one_device_mesh(), "one card")
+    m = rec["memory"]
+    predicted = m["argument_bytes"] + m["working_copy_bytes"]
+    held = sum(training["held_bytes"].values())
+    need(predicted == held, f"dry run {m['argument_bytes']} + {m['working_copy_bytes']} = "
+         f"{predicted} bytes, 4o's trainer held {held} ({training['held_bytes']})")
+    print(f"[dryrun] 4o's cell (B {B}, S {S}, one device): argument bytes "
+          f"{m['argument_bytes']} + working copy {m['working_copy_bytes']} = {predicted} "
+          f"== {held} bytes the trainer held on the card ({training['held_bytes']}); "
+          f"model FLOPs {rec['roofline']['model_flops']:.4e} a step, "
+          f"{rec['roofline']['compute_s'] * 1e3:.3f} ms at 989 TFLOP/s")
+    return dict(wall_s=wall, ok_cells=ok_cells, sample=sample, train_4o=rec,
+                held_bytes=held)
 
 
 # --------------------------------------------------------------------------- #
@@ -3859,11 +3987,14 @@ def main(argv=None) -> int:
     # 85.3 s against 74.8 in PR 23's final run) cut 4l and 4n to 14 of 28
     # layers and gemma2 in 4i to one pair (15.2, 85.3 and 28.7 s before);
     # at 532.4 s on a slower host it also cut mamba2 in 4b to 6 layers,
-    # mixtral in 4e to 2 and minicpm3 in 4g to 4 (17.2, 18.2 and 15.3 s)
+    # mixtral in 4e to 2 and minicpm3 in 4g to 4 (17.2, 18.2 and 15.3 s);
+    # 4o on f32 masters with three remat policies (63.6 s; the command
+    # 529.4 s on a slow host) cut 4n to 12 layers (45.3 s at 14)
     faults = timed("4l", serve_faults)
     autopoiesis = timed("4m", serve_autopoiesis)
     sharded = timed("4n", serve_sharded)
     training = timed("4o", train_on_card)
+    dry = timed("4p", dryrun_cells, training)
     # whisper's main path adds its launches to rows 2-4: serving, forward
     # with frames and the encoder-filled steps, each counted from zero,
     w_counts = [whisper["launches"], whisper["forward_launches"],
@@ -3928,7 +4059,7 @@ def main(argv=None) -> int:
                       "mixtral": mixtral, "registry": registry, "mla": mla, "ring": ring,
                       "gemma2": gemma2, "zamba2": zamba2, "whisper": whisper,
                       "faults": faults, "autopoiesis": autopoiesis, "sharded": sharded,
-                      "training": training, "backward": rows["backward"],
+                      "training": training, "dryrun": dry, "backward": rows["backward"],
                       "shard_kernels": rows["shard_kernels"],
                       "whisper_kernels": rows["whisper"], "head_dims": rows["head_dims"],
                       "moe_gmm_shapes": rows["moe_gmm_shapes"],

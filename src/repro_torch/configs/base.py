@@ -2,13 +2,15 @@
 
 A copy, not an import: the PyTorch port never imports the JAX package.
 Every architecture is described by a single :class:`ModelConfig`; the port's
-model (``repro_torch.models``) consumes these fields.
+model (``repro_torch.models``) consumes these fields.  The dry run's input
+shapes (:class:`ShapeSpec`, :data:`SHAPES`) and which cells apply
+(:func:`shape_applicable`) are the reference's.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -212,3 +214,34 @@ class ModelConfig:
             kw["ssm"] = SSMConfig(**kw["ssm"])
         return ModelConfig(**kw)
 
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    """One assigned input-shape cell."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # "train" | "prefill" | "decode"
+
+
+TRAIN_4K = ShapeSpec("train_4k", 4_096, 256, "train")
+PREFILL_32K = ShapeSpec("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = ShapeSpec("decode_32k", 32_768, 128, "decode")
+LONG_500K = ShapeSpec("long_500k", 524_288, 1, "decode")
+
+ALL_SHAPES: Tuple[ShapeSpec, ...] = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+SHAPES = {s.name: s for s in ALL_SHAPES}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeSpec) -> Tuple[bool, str]:
+    """Whether an (arch, shape) cell runs, and the reference's reason when
+    it does not (its reason strings, verbatim)."""
+    if shape.name == "long_500k":
+        bounded_kv = (cfg.family in ("ssm", "hybrid")
+                      or (cfg.sliding_window is not None and cfg.local_global_every == 0))
+        if not bounded_kv:
+            return False, ("full-attention KV at 500k has no sub-quadratic path "
+                           "(DESIGN.md long_500k skips)")
+        if cfg.is_encoder_decoder:
+            return False, "enc-dec audio backbone; 500k decoder context out of scope"
+    return True, ""

@@ -19,7 +19,11 @@ is the leaf ``("layers", "attn", "wq")`` of shape ``(L, d, H·D)``) — in the
 sorted-key order of a JAX dict pytree, so specs and fallback records come
 out as the reference's.  A :class:`PartitionSpec` is a plain tuple of
 entries (None, an axis name, or a tuple of axis names).
-``step_shardings`` (the jit in/out shardings of the dry run) is not ported.
+
+:func:`step_shardings` gives the dry run's in/out placement trees of a
+cell's step as spec trees over the policy's mesh (the reference's
+``NamedSharding`` trees, mesh left implicit); :func:`shard_shape` and
+:func:`shard_bytes` turn a placement into each device's shard.
 """
 from __future__ import annotations
 
@@ -28,8 +32,9 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
+import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models import lm
 
@@ -221,12 +226,14 @@ def _pad(shape: Tuple[int, ...], trailing: Tuple) -> Tuple:
 # --------------------------------------------------------------------------- #
 # the JAX layout of the port's parameters, and tree walks over it
 # --------------------------------------------------------------------------- #
-def jax_layout(model) -> Dict[str, Any]:
+def jax_layout(model, meta: bool = False) -> Dict[str, Any]:
     """The port's parameters as the reference's nested pytree of shapes:
     ``layers.{l}.attn.wq`` (d, H·D) becomes ``{"layers": {"attn": {"wq":
     (L, d, H·D)}}}``, ``final_norm.scale`` ``{"final_norm": {"scale":
-    (d,)}}``.  Leaves are shape tuples."""
+    (d,)}}``.  Leaves are shape tuples, or with ``meta`` ``meta`` tensors
+    of the stacked shape in the parameters' dtype."""
     stacked: Dict[Tuple[str, ...], Tuple[List[int], Tuple[int, ...]]] = {}
+    dtypes: Dict[Tuple[str, ...], torch.dtype] = {}
     for name, p in model.named_parameters():
         parts = name.split(".")
         depth = lm._STACKS.get(parts[0])
@@ -237,12 +244,15 @@ def jax_layout(model) -> Dict[str, Any]:
             idx = [int(i) for i in parts[1:1 + depth]]
         top, shape = stacked.get(path, ([0] * len(idx), tuple(p.shape)))
         stacked[path] = ([max(a, i + 1) for a, i in zip(top, idx)], shape)
+        dtypes[path] = p.dtype
     tree: Dict[str, Any] = {}
     for path, (stack, shape) in stacked.items():
         node = tree
         for key in path[:-1]:
             node = node.setdefault(key, {})
-        node[path[-1]] = tuple(stack) + shape
+        full = tuple(stack) + shape
+        node[path[-1]] = (torch.empty(full, dtype=dtypes[path], device="meta")
+                          if meta else full)
     return tree
 
 
@@ -422,3 +432,60 @@ def spec_leaves(tree) -> Dict[str, PartitionSpec]:
                 out[key] = v
     walk(tree, "")
     return out
+
+
+# --------------------------------------------------------------------------- #
+# full in/out placements per step kind, and the shards they give
+# --------------------------------------------------------------------------- #
+def step_shardings(cfg: ModelConfig, shape: ShapeSpec, pol: ShardingPolicy,
+                   specs: Dict[str, Any]):
+    """(in, out) placement trees matching the step signatures, over
+    ``specs`` (:func:`repro_torch.models.zoo.input_specs`):
+
+    train   -> in (params, opt_state, batch), out (loss, params, opt_state)
+    prefill -> in (params, batch), out last-token logits (B, V)
+    decode  -> in (params, cache, tokens, positions), out (tokens, cache)
+    """
+    mesh = pol.mesh
+    p_params = param_pspecs(cfg, pol, specs["params"])
+    if shape.kind == "train":
+        p_opt = opt_pspecs(cfg, pol, specs["opt_state"])
+        p_batch = batch_pspecs(cfg, pol, specs["batch"])
+        return (p_params, p_opt, p_batch), (P(), p_params, p_opt)
+    if shape.kind == "prefill":
+        p_batch = batch_pspecs(cfg, pol, specs["batch"])
+        b = _batch_entry(pol, shape.global_batch)
+        out = _sanitize(mesh, (shape.global_batch, cfg.vocab_size), (b, pol.tp_axis))
+        return (p_params, p_batch), out
+    p_cache = cache_pspecs(cfg, pol, specs["cache"])
+    b = _batch_entry(pol, shape.global_batch)
+    tok = _sanitize(mesh, (shape.global_batch, 1), (b, None))
+    pos = _sanitize(mesh, (shape.global_batch,), (b,))
+    out_tok = _sanitize(mesh, (shape.global_batch,), (b,))
+    return (p_params, p_cache, tok, pos), (out_tok, p_cache)
+
+
+def shard_shape(mesh: Mesh, shape: Tuple[int, ...], spec: PartitionSpec) -> Tuple[int, ...]:
+    """One device's shard of a ``shape`` placed by ``spec`` (replicated
+    dims and trailing dims the spec leaves out stay whole)."""
+    entries = tuple(spec) + (None,) * (len(shape) - len(spec))
+    return tuple(d // _axis_size(mesh, e) for d, e in zip(shape, entries))
+
+
+def _zip_leaves(tree, specs) -> List[Tuple[Any, PartitionSpec]]:
+    if isinstance(specs, PartitionSpec):
+        return [(tree, specs)]
+    if isinstance(tree, Mapping):
+        return [x for k in sorted(tree) for x in _zip_leaves(tree[k], specs[k])]
+    return [x for t, s in zip(tree, specs) for x in _zip_leaves(t, s)]
+
+
+def shard_bytes(mesh: Mesh, tree, specs) -> int:
+    """Bytes one device holds of every leaf of ``tree`` (tensors, ``meta``
+    ones included, in nested dicts, tuples or lists) placed by the spec tree
+    ``specs`` of the same structure."""
+    total = 0
+    for leaf, spec in _zip_leaves(tree, specs):
+        total += int(np.prod(shard_shape(mesh, tuple(leaf.shape), spec),
+                             dtype=np.int64)) * leaf.element_size()
+    return total

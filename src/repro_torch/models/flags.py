@@ -1,11 +1,22 @@
 """Runtime implementation switches (port of ``src/repro/models/flags.py``).
 
-Only the subset the port reads: ``moe_impl`` — ``"dense"`` (every expert on
-every token, mixed by the gates; the default, as in the JAX package) or
-``"dispatch"`` (capacity-based scatter dispatch) — with the same
-environment variable, ``REPRO_MOE_IMPL``; and the sharded routes
-``ep_shard`` and ``paged_shard``.  JAX reads its flags when a step is
-traced; the port runs eagerly and reads them on every call.
+* ``moe_impl`` — ``"dense"`` (every expert on every token, mixed by the
+  gates; the default, as in the JAX package) or ``"dispatch"``
+  (capacity-based scatter dispatch), from ``REPRO_MOE_IMPL``;
+* ``remat`` — how the full-sequence forward keeps its activations for the
+  backward, from ``REPRO_REMAT`` with the reference's default ``"full"``:
+  ``"full"`` recomputes each layer unit in the backward, ``"dots"`` keeps
+  the outputs of the matrix products without batch dimensions and
+  recomputes the rest, ``"none"`` keeps every activation
+  (:func:`repro_torch.models.lm.forward`);
+* the sharded routes ``ep_shard`` and ``paged_shard``.
+
+The reference's ``attn_impl``, ``q_chunk`` and ``attn_scores`` choose how
+its jnp attention lowers; the port's attention is its kernels, so they have
+no counterpart.  Its ``act_shard`` places the activations of a step that
+XLA partitions; the port's model places nothing, so the dry run only
+records the value (:func:`repro_torch.distributed.sharding.activation_shard_flags`).  JAX reads its flags when a step is traced; the port runs
+eagerly and reads them on every call.
 """
 from __future__ import annotations
 
@@ -16,6 +27,8 @@ _FLAGS = {
     # "dense"   : compute-all-experts weighted mix (baseline)
     # "dispatch": capacity-based scatter dispatch (optimized)
     "moe_impl": os.environ.get("REPRO_MOE_IMPL", "dense"),
+    # remat policy of the layer units: "full" | "dots" | "none"
+    "remat": os.environ.get("REPRO_REMAT", "full"),
     # expert-parallel MoE routing: None or {"mesh": repro_torch Mesh,
     # "axis": str} — when set, the MoE FFN runs
     # distributed.expert_parallel.ep_moe_mix with the expert axis split over

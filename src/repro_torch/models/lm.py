@@ -52,12 +52,14 @@ leaves are accepted by dtype name.
 from __future__ import annotations
 
 import copy
+import functools
 import math
 from typing import Callable, Dict, Iterator, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device, working_dtype
@@ -419,19 +421,41 @@ def _logits(model: LM, cfg: ModelConfig, x: torch.Tensor,
 # --------------------------------------------------------------------------- #
 # full-sequence forward
 # --------------------------------------------------------------------------- #
+# the "dots" policy: keep the outputs of matrix products without batch
+# dimensions (the counterpart of ``dots_with_no_batch_dims_saveable``)
+_DOTS = functools.partial(ckpt.create_selective_checkpoint_contexts,
+                          [torch.ops.aten.mm.default, torch.ops.aten.addmm.default])
+
+
+def _maybe_remat(fn: Callable) -> Callable:
+    """``fn`` checkpointed as the ``remat`` flag says, while autograd
+    records a graph: ``"full"`` keeps only its inputs and recomputes it in
+    the backward, ``"dots"`` also keeps the ``aten.mm``/``aten.addmm``
+    outputs, ``"none"`` keeps everything.  Under ``no_grad`` or
+    ``inference_mode`` ``fn`` runs as it is."""
+    pol = flags.get_flag("remat")
+    if pol == "none" or not torch.is_grad_enabled():
+        return fn
+    kw = {"context_fn": _DOTS} if pol == "dots" else {}
+    return lambda *args: ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
+
+
 def encode(model: LM, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
     """Whisper's encoder over frame embeddings (B, F, d): ``enc_pos`` added,
-    then per layer self-attention with RoPE at the frame positions
-    0 … F−1 and SwiGLU, then ``enc_norm`` (the encoder of the JAX
-    ``forward``).  The self-attention is causal, as the JAX encoder's is:
-    it passes ``causal=False``, which the JAX ``attention_fwd`` ignores in
-    full-sequence mode.  Returns (B, F, d) in the working dtype."""
+    then per layer (one remat unit) self-attention with RoPE at the frame
+    positions 0 … F−1 and SwiGLU, then ``enc_norm`` (the encoder of the
+    JAX ``forward``).  The self-attention is causal, as the JAX encoder's
+    is: it passes ``causal=False``, which the JAX ``attention_fwd`` ignores
+    in full-sequence mode.  Returns (B, F, d) in the working dtype."""
     x = frames.to(model.enc_pos.dtype) + model.enc_pos[None]
     B, F, _ = x.shape
     fpos = torch.arange(F, device=x.device)[None].expand(B, F)
+
+    def enc_body(layer, h):
+        h = h + attention_fwd(layer.attn, cfg, layer.ln1(h), fpos, None)
+        return h + swiglu(layer.ffn, layer.ln2(h))
     for layer in model.enc_layers:
-        x = x + attention_fwd(layer.attn, cfg, layer.ln1(x), fpos, None)
-        x = x + swiglu(layer.ffn, layer.ln2(x))
+        x = _maybe_remat(functools.partial(enc_body, layer))(x)
     return model.enc_norm(x)
 
 
@@ -453,37 +477,52 @@ def forward(model: LM, cfg: ModelConfig, tokens: torch.Tensor,
     """Full-sequence forward from position 0 without a cache (the JAX
     ``forward``). tokens (B, S) → logits (B, S, V); an encoder-decoder
     config also takes the frame embeddings (B, F, d), runs :func:`encode`
-    and cross-attends every decoder layer to it."""
+    and cross-attends every decoder layer to it.
+
+    The remat units are the reference's scan bodies, each wrapped by
+    :func:`_maybe_remat`: a layer of the dense, moe and ssm stacks, a
+    (local, global) pair, a zamba2 group (its Mamba layers, then the shared
+    block), a tail layer, an encoder layer, and a decoder layer with its
+    cross-attention keys and values."""
     B, S = tokens.shape
     x = _embed(model, cfg, tokens)
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
     attend = lambda window: lambda a, h: (
         mla_fwd(a, cfg, h, positions) if cfg.mla is not None else
         attention_fwd(a, cfg, h, positions, window))
+    unit = lambda fn, *args: _maybe_remat(functools.partial(fn, *args))
+    mamba = lambda layer, h: layer(h)[0]
     if cfg.family == "ssm":
         for layer in model.layers:
-            x, _ = layer(x)
+            x = unit(mamba, layer)(x)
     elif cfg.family == "hybrid":
-        for group in model.mamba_groups:
+        def group_body(group, h):
             for layer in group:
-                x, _ = layer(x)
-            x = model.shared_attn(x, attend(None))
+                h = layer(h)[0]
+            return model.shared_attn(h, attend(None))
+        for group in model.mamba_groups:
+            x = unit(group_body, group)(x)
         for layer in getattr(model, "mamba_tail", ()):
-            x, _ = layer(x)
+            x = unit(mamba, layer)(x)
     elif cfg.local_global_every == 2:
+        def pair_body(local, glob, h):
+            return glob(local(h, attend(cfg.sliding_window)), attend(None))
         for local, glob in model.layer_pairs:
-            x = glob(local(x, attend(cfg.sliding_window)), attend(None))
+            x = unit(pair_body, local, glob)(x)
     elif cfg.is_encoder_decoder:
         if frames is None:
             raise ValueError(f"{cfg.name}: forward needs frame embeddings")
         enc = encode(model, cfg, frames)
-        for layer in model.layers:
+
+        def dec_body(layer, h, enc):
             xk, xv = cross_kv(layer.xattn, cfg, enc)
-            x = layer(x, attend(None),
-                      lambda a, h: cross_attention_fwd(a, cfg, h, xk, xv))
+            return layer(h, attend(None),
+                         lambda a, q: cross_attention_fwd(a, cfg, q, xk, xv))
+        for layer in model.layers:
+            x = unit(dec_body, layer)(x, enc)
     else:
         for layer in model.layers:
-            x = layer(x, attend(cfg.sliding_window))
+            x = unit(lambda layer, h: layer(h, attend(cfg.sliding_window)), layer)(x)
     return _logits(model, cfg, x, last_only=False)
 
 
@@ -509,8 +548,9 @@ def init_cache(cfg: ModelConfig, B: int, seq_len: int,
     ``glob_{k,v,pos}`` (L/2, B, seq_len, …); zamba2 ``groups`` =
     ``{conv, ssm}`` (G, per_group, B, …), ``attn_{k,v,pos}`` (G, B,
     seq_len, …) and ``tail`` = ``{conv, ssm}`` (trailing, B, …); whisper
-    the dense keys and ``{"xk", "xv"}`` (L, B, n_frames, Hkv, D), zeros."""
-    device = resolve_device(device)
+    the dense keys and ``{"xk", "xv"}`` (L, B, n_frames, Hkv, D), zeros.
+    ``device="meta"`` gives the shapes alone (the dry run's specs)."""
+    device = torch.device("meta") if str(device) == "meta" else resolve_device(device)
     dtype = working_dtype(cfg) if dtype is None else dtype
 
     def kv(n: int, S: int, prefix: str = "") -> Cache:

@@ -1,12 +1,13 @@
 """Resumable synthetic data pipeline (port of ``src/repro/training/data.py``).
 
-Every batch is a pure function of ``(seed, step)``: it is drawn from a
-``torch.Generator`` seeded from the pair, so a restart needs no iterator
-state beyond the step counter.  The language is the reference's — a
-learnable LCG ``t_{i+1} = (31·t_i + 7) mod V`` with 5% random noise tokens,
-``labels`` the tokens shifted by one — but not its random stream: JAX's
-threefry bits are not reproduced, so parity tests hand JAX's batches to the
-port.
+Every batch is a pure function of ``(seed, step)``: the reference's
+counter-based keys — ``fold_in(PRNGKey(seed), step)`` split in three — drawn
+through :mod:`repro_torch.training.prng`, JAX's threefry on numpy, so the
+port's batch of a step is the reference's bit for bit and a run resumed
+across packages goes on over the same batches.  The language is a learnable
+LCG ``t_{i+1} = (31·t_i + 7) mod V`` from a random first token, with 5%
+of the tokens replaced by uniform random ones; ``labels`` are the tokens
+shifted by one.
 """
 from __future__ import annotations
 
@@ -15,6 +16,8 @@ from typing import Dict, Iterator
 
 import numpy as np
 import torch
+
+from repro_torch.training import prng
 
 NOISE = 0.05          # share of tokens replaced by a uniform random token
 
@@ -27,28 +30,21 @@ class DataConfig:
     seed: int = 0
 
 
-def _generator(cfg: DataConfig, step: int) -> torch.Generator:
-    """A CPU generator keyed by ``(seed, step)`` (both non-negative): the
-    pair is hashed by ``numpy``'s ``SeedSequence`` into the 32 bits the CPU
-    generator's Mersenne Twister takes."""
-    if cfg.seed < 0 or step < 0:
-        raise ValueError(f"seed {cfg.seed} and step {step} must be non-negative")
-    key = np.random.SeedSequence([cfg.seed, step]).generate_state(1)[0]
-    return torch.Generator().manual_seed(int(key))
-
-
 def batch_at(cfg: DataConfig, step: int) -> Dict[str, torch.Tensor]:
     """The batch of ``step``: ``tokens`` and ``labels``, (B, S) int64 on the
-    CPU."""
-    gen = _generator(cfg, step)
+    CPU, equal to the reference's int32 values.  ``seed`` and ``step``
+    must be non-negative."""
+    if cfg.seed < 0 or step < 0:
+        raise ValueError(f"seed {cfg.seed} and step {step} must be non-negative")
     B, S, V = cfg.global_batch, cfg.seq_len, cfg.vocab_size
-    seq = torch.empty((B, S + 1), dtype=torch.int64)
-    seq[:, 0] = torch.randint(0, V, (B,), generator=gen)
+    k0, k1, k2 = prng.split(prng.fold_in(prng.key(cfg.seed), step), 3)
+    seq = np.empty((B, S + 1), dtype=np.int64)
+    seq[:, 0] = prng.randint(k0, (B,), 0, V)
     for i in range(S):
         seq[:, i + 1] = (31 * seq[:, i] + 7) % V
-    noise = torch.rand((B, S + 1), generator=gen) < NOISE
-    rand = torch.randint(0, V, (B, S + 1), generator=gen)
-    seq = torch.where(noise, rand, seq)
+    noise = prng.bernoulli(k1, NOISE, (B, S + 1))
+    seq = np.where(noise, prng.randint(k2, (B, S + 1), 0, V), seq)
+    seq = torch.from_numpy(seq)
     return {"tokens": seq[:, :-1].contiguous(), "labels": seq[:, 1:].contiguous()}
 
 

@@ -22,8 +22,9 @@ tensors and leaves its inputs untouched.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 
 Tensors = Dict[str, torch.Tensor]
@@ -49,6 +50,67 @@ def init_state(params: Mapping[str, torch.Tensor]) -> Dict[str, object]:
     dev = next(iter(params.values())).device
     return {"m": zeros(), "v": zeros(),
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def init_masters(params: Mapping[str, torch.Tensor],
+                 given: Optional[Mapping[str, object]] = None) -> Tensors:
+    """The f32 master of every parameter, on its device: an f32 parameter is
+    its own master; any other gets an f32 copy.  With ``given`` (f32 values
+    under the same names, tensors or numpy arrays — e.g.
+    :func:`repro_torch.models.lm.named_from_jax` of the reference's
+    parameters) the masters take those values and the parameters their
+    rounding; without it, the masters are the parameters upcast."""
+    masters: Tensors = {}
+    with torch.no_grad():
+        for k, p in params.items():
+            m = p if p.dtype == torch.float32 else torch.empty(
+                p.shape, dtype=torch.float32, device=p.device)
+            if given is not None:
+                src = given[k]
+                m.copy_(src if isinstance(src, torch.Tensor) else
+                        torch.from_numpy(np.array(src, dtype=np.float32)))
+            elif m is not p:
+                m.copy_(p)
+            masters[k] = m
+        if given is not None:
+            round_into(params, masters)
+    return masters
+
+
+def own_masters(params: Mapping[str, torch.Tensor]) -> Tensors:
+    """``params`` as their own masters, which only f32 parameters can be: a
+    parameter of another dtype raises, since an update written straight
+    into it would be rounded to its dtype (pass its f32 master instead)."""
+    low = [k for k, p in params.items() if p.dtype != torch.float32]
+    if low:
+        raise ValueError(f"{len(low)} parameters are not f32 (e.g. {low[0]}): "
+                         f"the step needs their f32 masters (init_masters)")
+    return dict(params)
+
+
+@torch.no_grad()
+def round_into(params: Mapping[str, torch.Tensor], masters: Mapping[str, torch.Tensor]
+               ) -> None:
+    """Write each master's rounding to its parameter's dtype into the
+    parameter (a parameter that is its own master is left as it is)."""
+    for k, p in params.items():
+        if masters[k] is not p:
+            p.copy_(masters[k])
+
+
+def update_masters(cfg: AdamWConfig, params: Mapping[str, torch.Tensor],
+                   masters: Mapping[str, torch.Tensor], grads: Mapping[str, torch.Tensor],
+                   state: Mapping[str, object]) -> Dict[str, object]:
+    """One AdamW step of the f32 ``masters`` (updated in place) on
+    ``grads``, then their rounding written into ``params``; returns the new
+    optimizer state."""
+    new, state = apply_updates(cfg, masters, grads, state)
+    with torch.no_grad():
+        for k, m in masters.items():
+            m.copy_(new[k])
+    del new
+    round_into(params, masters)
+    return state
 
 
 def _schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:

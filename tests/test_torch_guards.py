@@ -59,8 +59,10 @@ def test_port_never_imports_jax_or_the_jax_package():
             port / "serving" / "sharded.py", port / "launch" / "mesh.py",
             port / "launch" / "sharded_check.py", port / "launch" / "train.py",
             port / "models" / "zoo.py", port / "distributed" / "compression.py",
+            port / "distributed" / "hlo_analysis.py", port / "launch" / "dryrun.py",
+            port / "models" / "flags.py",
             *(port / "training" / f"{m}.py"
-              for m in ("optim", "data", "checkpoint", "trainer"))} <= set(files)
+              for m in ("optim", "data", "checkpoint", "trainer", "prng"))} <= set(files)
     offenders = {str(p.relative_to(ROOT)): b for p in files
                  if (b := _forbidden_imports(p))}
     assert offenders == {}
@@ -81,7 +83,8 @@ def test_scan_catches_forbidden_imports_but_not_repro_torch(tmp_path):
 def test_importing_the_port_loads_neither_jax_nor_repro():
     code = ("import sys, repro_torch, repro_torch.serving.backend, "
             "repro_torch.launch.serve, repro_torch.launch.sharded_check, "
-            "repro_torch.launch.train, repro_torch.distributed.compression\n"
+            "repro_torch.launch.train, repro_torch.distributed.compression, "
+            "repro_torch.launch.dryrun, repro_torch.training.prng\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro', 'triton'))\n"
             "assert not bad, bad\n")
