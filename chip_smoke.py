@@ -23,10 +23,14 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      encoder's 1500 frames causal and with ``causal=0``, the
      cross-attention's chunks with ``causal=0`` over them, a causal decoder
      chunk; the decode over the 1500 frames and the 448-row buffer); the
-     training gradients of RMSNorm and flash attention (the CUDA forward,
-     then the backward's explicit PyTorch ops) against autograd through the
-     plain versions on the card at full width, with the device ms of each
-     forward kernel and of its backward ops at a microbatch's shapes;
+     training gradients of RMSNorm, flash attention (D 128, and gemma2's
+     D 256 with window and softcap, zamba2's D 112, whisper's D 64 with
+     ``causal=0``), ``moe_gmm`` (mixtral-8x7b's experts at C 512, stride-0
+     and packed tokens) and the SSD scan (mamba2's and zamba2's shapes,
+     with and without a state) — the CUDA forward, then the backward's
+     explicit PyTorch ops — against autograd through the plain versions on
+     the card at full width, with the device ms of each forward kernel and
+     of its backward ops at a microbatch's shapes;
   4. the paths at full width with seeded random weights, each with the
      kernels' launch counters zeroed just before it and checked against its
      dispatches just after:
@@ -100,8 +104,11 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
          forward kernels against the backward's ops, against its bound;
          the int8 ``compressed_allreduce`` of the trained gradients over 4
          logical devices of the card; a resume at 1 layer equal bit for bit
-         to an uninterrupted run; a mamba2 step refused (no SSD-scan
-         gradient on the card);
+         to an uninterrupted run; then mixtral-8x7b (1 of 32 layers, dense
+         mix, and one step under the capacity dispatch), mamba2-1.3b whole
+         and zamba2-7b (15 of 81 slots) trained the same way for 3 steps
+         through ``moe_gmm`` and the SSD scan, each gated alike on its exact
+         launches a step, with one profiled step each;
      4p. the dry run: ``launch/dryrun.py`` over 10 archs × 4 shapes × both
          production meshes on shapes only (statuses as ``shape_applicable``
          says, no launch, no allocation), then 4o's cell on one device,
@@ -112,8 +119,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      width: qwen2-1.5b, mamba2-1.3b and minicpm3-4b at 2 layers,
      mixtral-8x7b at 1, gemma2-9b at one pair, zamba2-7b at one group
      and the shared block, and whisper-tiny whole with its encoder; and one
-     training step of qwen2-1.5b at 2 layers in f32 (loss and every
-     gradient within 1e-3 of the leaf's max);
+     training step in f32 (loss and every gradient within 1e-3 of the
+     leaf's max) of qwen2-1.5b and mamba2-1.3b at 2 layers, mixtral-8x7b at
+     1 (32 tokens) and zamba2-7b at one group and the shared block;
   6. the kernels' JSON line, the card line, and the final JSON line.
 It imports nothing of JAX or the JAX package.
 """
@@ -121,6 +129,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import io
 import json
 import math
@@ -138,6 +147,21 @@ TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 SOURCES = ("paged_flash_decode", "flash_attention", "ssd_scan", "moe_gmm",
            "rmsnorm")
 MOE_TOL = {"bfloat16": 2e-2, "float32": 3e-4}    # tests/test_kernels.py's moe_gmm
+# flash attention's training shapes at the zoo's other head dims: (H, Hkv, D,
+# causal, window, softcap) of gemma2-9b, zamba2-7b's shared block, whisper-tiny
+FA_TRAIN_SHAPES = {"gemma2 D 256": (16, 8, 256, True, 4096, 50.0),
+                   "zamba2 D 112": (32, 32, 112, True, None, None),
+                   "whisper D 64": (6, 6, 64, False, None, None)}
+# the SSD scan's training shapes (h, n) at p 64: mamba2-1.3b, zamba2-7b
+SSD_TRAIN_SHAPES = {"mamba2": (64, 128), "zamba2": (112, 64)}
+# phase 4o's other families (arch, layers or None for whole) and their steps:
+# mixtral at 1 of 32 layers (1.71 B parameters; 2 would be 3.1 B), zamba2 at
+# 15 of 81 slots (1.45 B parameters), mamba2 whole
+TRAIN_FAMILIES = (("mixtral-8x7b", 1), ("mamba2-1.3b", None), ("zamba2-7b", 15))
+FAMILY_STEPS = 3
+# phase 5's f32 training steps card vs CPU: (arch, layers, B, S)
+TRAIN_VS_CPU = (("mamba2-1.3b", 2, 4, 128), ("mixtral-8x7b", 1, 2, 16),
+                ("zamba2-7b", 6, 1, 64))
 # (H, Hkv, D, softcap) of the attention layers whose head dims are not 128's
 HEAD_DIM_SHAPES = {"gemma2-9b": (16, 8, 256, 50.0), "zamba2-7b": (32, 32, 112, None)}
 _FLEX = None          # torch.compile'd flex_attention, built on first use
@@ -218,7 +242,6 @@ def device_ms_by_kernel(torch, fn, n_inputs: int, name: str, iters: int = 40) ->
     in all).  If none is whole, the last window's mean event times the
     events a call launches is returned, an estimate that is printed as such
     and listed in :data:`ESTIMATED`."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
     fn(0)
@@ -233,15 +256,14 @@ def device_ms_by_kernel(torch, fn, n_inputs: int, name: str, iters: int = 40) ->
                 torch.cuda.synchronize()
                 prof.step()
         spans = {}                      # kernel -> [total µs, events]
-        traced.append(0)
-        for e in prof.events():         # (the schedule's step spans the window)
-            traced[-1] += e.device_type == DeviceType.CUDA
-            if (e.device_type == DeviceType.CUDA and name in e.name.lower()
-                    and not e.name.startswith("ProfilerStep")):
-                key = re.search(r"\w*kernel\w*", e.name)
-                key = key.group(0) if key else e.name[:60]
+        events = device_events(prof)    # (the schedule's step spans the window)
+        traced.append(len(events))
+        for start, end, ev_name, _ in events:
+            if name in ev_name.lower() and not ev_name.startswith("ProfilerStep"):
+                key = re.search(r"\w*kernel\w*", ev_name)
+                key = key.group(0) if key else ev_name[:60]
                 acc = spans.setdefault(key, [0.0, 0])
-                acc[0] += e.time_range.end - e.time_range.start
+                acc[0] += end - start
                 acc[1] += 1
         if spans and all(n % iters == 0 for _, n in spans.values()):
             break
@@ -889,7 +911,9 @@ def check_backward(torch) -> dict:
     forward, then the backward's explicit PyTorch ops) against autograd
     through its plain version on the same inputs on the card, at full width:
     RMSNorm (1024, 1536), flash attention B 4, H 12, Hkv 2, D 128, causal,
-    at S 128 and S 2048; f32 to 2e-5, bf16 to 2e-2.  Then, bf16 at a
+    at S 128 and S 2048, and at B 4, S 128 at :data:`FA_TRAIN_SHAPES`;
+    ``moe_gmm`` (:func:`check_moe_backward`) and the SSD scan
+    (:func:`check_ssd_backward`); f32 to 2e-5, bf16 to 2e-2.  Then, bf16 at a
     training microbatch's shapes (B 4, S 128: 512 rows), the device ms per
     call of each kernel's forward and of its backward's ops, and each
     backward's bound (its inputs and outputs once over 3.35 TB/s, its
@@ -937,6 +961,28 @@ def check_backward(torch) -> dict:
             del y, got, want, q, k, v, do
         torch.cuda.empty_cache()
 
+    # flash attention at the zoo's other head dims (gemma2, zamba2, whisper)
+    for tag, (H, Hkv, D, causal, window, cap) in FA_TRAIN_SHAPES.items():
+        for dt in ("float32", "bfloat16"):
+            q, do = rand((4, 128, H, D), dt), rand((4, 128, H, D), dt)
+            k, v = rand((4, 128, Hkv, D), dt), rand((4, 128, Hkv, D), dt)
+            fa = lambda f: lambda q, k, v: f(q, k, v, causal, window, cap)
+            y, got = grads(fa(fa_o.flash_attention), (q, k, v), do)
+            need(type(y.grad_fn).__name__ == "_FlashAttentionBackward",
+                 f"flash_attention {tag}: no autograd node")
+            _, want = grads(fa(fa_r.flash_attention_ref), (q, k, v), do)
+            errs = [max_err(torch, a, b, dt) for a, b in zip(got, want)]
+            out["max_abs_err"][f"flash_attention {dt} {tag}"] = max(errs)
+            print(f"[backward] flash_attention {dt} {tag}: B 4, S 128, H {H}, Hkv {Hkv}, "
+                  f"D {D}, causal {causal}, window {window}, softcap {cap}: dq/dk/dv "
+                  f"max_abs_err {errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} (tol {TOL[dt]})")
+            del y, got, want, q, k, v, do
+    torch.cuda.empty_cache()
+    moe = check_moe_backward(torch, rand, grads)
+    ssd = check_ssd_backward(torch, rand)
+    out["max_abs_err"].update(moe.pop("max_abs_err"))
+    out["max_abs_err"].update(ssd.pop("max_abs_err"))
+
     # bf16 at one microbatch of qwen2-1.5b training: forward kernel vs backward ops
     x, sc, g = rand((512, 1536), "bfloat16"), rand((1536,), "float32", 0.1), \
         rand((512, 1536), "bfloat16")
@@ -955,16 +1001,150 @@ def check_backward(torch) -> dict:
                             lambda i: fa_o.flash_attention_backward(q, k, v, do),
                             fa_bytes, fa_flops)}
     for name, (fwd, bwd, nbytes, flops) in timings.items():
-        f_dev = device_ms(torch, fwd, 1, "", iters=40)
-        b_dev = device_ms(torch, bwd, 1, "", iters=20)
-        b_ms = time_ms(torch, bwd, 1, iters=20)
-        b_bound, b_by = bound(nbytes, flops, "bfloat16")
-        out[name] = dict(forward_device_ms=f_dev, backward_device_ms=b_dev,
-                         backward_event_ms=b_ms, backward_bound_ms=b_bound,
-                         backward_bound_by=b_by)
-        print(f"[backward] {name} bf16 at a microbatch's shape: forward kernel "
-              f"{f_dev:.4f} device ms per launch; backward ops {b_dev:.4f} device ms "
-              f"per call ({b_ms:.4f} ms event), bound {b_bound:.5f} ms by {b_by}")
+        out[name] = timed_backward(torch, name, fwd, bwd, nbytes, flops)
+    out.update(moe)
+    out.update(ssd)
+    return out
+
+
+def timed_backward(torch, label: str, fwd, bwd, nbytes: float, flops: float) -> dict:
+    """bf16 device ms per call of a forward kernel and of its backward's
+    ops (``torch.profiler``), the backward's event ms, and the backward's
+    bound: its inputs and outputs once over 3.35 TB/s against its products
+    over 989 TFLOP/s; printed under ``label``."""
+    f_dev = device_ms(torch, fwd, 1, "", iters=40)
+    b_dev = device_ms(torch, bwd, 1, "", iters=20)
+    b_ms = time_ms(torch, bwd, 1, iters=20)
+    b_bound, b_by = bound(nbytes, flops, "bfloat16")
+    print(f"[backward] {label} bf16 at a microbatch's shape: forward kernel "
+          f"{f_dev:.4f} device ms per launch; backward ops {b_dev:.4f} device ms "
+          f"per call ({b_ms:.4f} ms event), bound {b_bound:.5f} ms by {b_by}")
+    return dict(forward_device_ms=f_dev, backward_device_ms=b_dev, backward_event_ms=b_ms,
+                backward_bound_ms=b_bound, backward_bound_by=b_by)
+
+
+def check_moe_backward(torch, rand, grads) -> dict:
+    """Phase 3 for training ``moe_gmm``: its autograd wrapper on the card
+    (the CUDA forward, then ``moe_gmm_backward``'s explicit ops) against
+    autograd through the plain version on the card, at mixtral-8x7b's E 8,
+    D 4096, F 14336 and C 512 (a microbatch of B 4 × S 128), with the dense
+    mix's stride-0 tokens and with a packed dispatch buffer; f32 to 2e-5,
+    bf16 to 2e-2.  Then bf16 timings of the stride-0 call."""
+    from repro_torch.kernels.moe_gmm import kernel as moe_k
+    from repro_torch.kernels.moe_gmm import ops as moe_o, ref as moe_r
+    E, C, DM, FF = 8, 512, 4096, 14336
+    out = {"max_abs_err": {}}
+    for dt in ("float32", "bfloat16"):
+        w = (rand((E, DM, FF), dt, DM ** -0.5), rand((E, DM, FF), dt, DM ** -0.5),
+             rand((E, FF, DM), dt, FF ** -0.5))
+        g = rand((E, C, DM), dt)
+        for shared in (True, False):
+            x = rand((1 if shared else E, C, DM), dt)
+            tag = "stride-0 (dense mix)" if shared else "packed (dispatch)"
+            wrap = lambda f: lambda x, *w: f(x.expand(E, C, DM) if shared else x, *w)
+            y, got = grads(wrap(moe_o.moe_gmm), (x,) + w, g)
+            need(type(y.grad_fn).__name__ == "_MoEGMMBackward", "moe_gmm: no autograd node")
+            del y
+            _, want = grads(wrap(moe_r.moe_gmm_ref), (x,) + w, g)
+            errs = [max_err(torch, a, b, dt) for a, b in zip(got, want)]
+            out["max_abs_err"][f"moe_gmm {dt} {tag}"] = max(errs)
+            print(f"[backward] moe_gmm {dt} E {E}, C {C}, D {DM}, F {FF}, x {tag}: "
+                  f"dx/dWg/dWu/dWd max_abs_err {errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e}/"
+                  f"{errs[3]:.3e} (tol {TOL[dt]}) against autograd through the plain "
+                  f"version")
+            del got, want, x
+            torch.cuda.empty_cache()
+        del w, g
+        torch.cuda.empty_cache()
+    # bf16 at a microbatch of mixtral-8x7b training under the dense mix
+    w = (rand((E, DM, FF), "bfloat16", DM ** -0.5), rand((E, DM, FF), "bfloat16", DM ** -0.5),
+         rand((E, FF, DM), "bfloat16", FF ** -0.5))
+    x, dy = rand((1, C, DM), "bfloat16").expand(E, C, DM), rand((E, C, DM), "bfloat16")
+    # in: x once, Wg, Wu, Wd, dy; out: dx (E, C, D), dWg, dWu, dWd.  Products:
+    # hg, hu again, da, dWd, dWg, dWu and dx's two: eight of 2·E·C·D·F
+    nbytes = (C * DM + 2 * E * C * DM + 6 * E * DM * FF) * 2
+    flops = 8 * 2.0 * E * C * DM * FF
+    out["moe_gmm"] = timed_backward(torch, f"moe_gmm (E {E}, C {C}, stride-0 x)",
+                                    lambda i: moe_k.moe_gmm(x, *w),
+                                    lambda i: moe_o.moe_gmm_backward(x, *w, dy),
+                                    nbytes, flops)
+    del w, x, dy
+    torch.cuda.empty_cache()
+    return out
+
+
+def ssd_products(b: int, s: int, h: int, p: int, n: int, chunk: int) -> float:
+    """FLOPs of the products of the plain SSD scan over (b, s): per
+    position the intra-chunk C·Bᵀ (chunk·n) and its product with x
+    (chunk·h·p), the chunk states and the carried state's output (h·p·n
+    each), two FLOPs a multiply-add."""
+    return 2.0 * b * s * (chunk * n + chunk * h * p + 2 * h * p * n)
+
+
+def check_ssd_backward(torch, rand) -> dict:
+    """Phase 3 for training the SSD scan: its autograd wrapper on the card
+    (the CUDA forward, then ``ssd_scan_backward``: autograd through the
+    plain version recomputed) against autograd through the plain version on
+    the card, at mamba2's (h 64, p 64, n 128) and zamba2's (h 112, p 64,
+    n 64) shapes, b 4, s 128 (the model's chunk, min(256, s) = 128),
+    without a state and with a nonzero state and a gradient on the final
+    state; f32 to 2e-5, bf16 to 2e-2.  Then bf16 timings at each shape."""
+    from repro_torch.kernels.ssd_scan import kernel as ssd_k
+    from repro_torch.kernels.ssd_scan import ops as ssd_o, ref as ssd_r
+    dev = torch.device("cuda")
+    b, s, p, chunk = 4, 128, 64, 128
+    out = {"max_abs_err": {}}
+
+    def inputs(h, n, dt, state):         # phase 3's scales and mamba2's dt and A
+        gen = torch.Generator(device=dev).manual_seed(h * 1000 + n)
+        u = torch.rand((b, s, h), device=dev, generator=gen)
+        dtv = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
+        A = -torch.arange(1, h + 1, dtype=torch.float32, device=dev)
+        x = rand((b, s, h, p), dt, 0.5)
+        B, C = rand((b, s, 1, n), dt, 0.3), rand((b, s, 1, n), dt, 0.3)
+        st = rand((b, h, p, n), dt, 0.3) if state else None
+        dfin = rand((b, h, p, n), dt) if state else None
+        return [x, dtv, A, B, C, st], rand((b, s, h, p), dt), dfin
+
+    def run(fn, ins, dy, dfin):
+        ins = [t.detach().clone().requires_grad_(True) if t is not None else None
+               for t in ins]
+        y, fin = fn(*ins[:5], chunk, ins[5])
+        outs, gs = ([y, fin], [dy, dfin]) if dfin is not None else ([y], [dy])
+        return y, fin, torch.autograd.grad(outs, [t for t in ins if t is not None], gs)
+
+    for model, (h, n) in SSD_TRAIN_SHAPES.items():
+        for dt in ("float32", "bfloat16"):
+            for state in (False, True):
+                ins, dy, dfin = inputs(h, n, dt, state)
+                y, fin, got = run(ssd_o.ssd_scan, ins, dy, dfin)
+                need(type(y.grad_fn).__name__ == "_SSDScanBackward",
+                     "ssd_scan: no autograd node")
+                py, pfin, want = run(ssd_r.ssd_scan_ref, ins, dy, dfin)
+                errs = [max_err(torch, a, c, dt) for a, c in zip(got, want)]
+                fwd = max(max_err(torch, y.detach(), py.detach(), dt),
+                          max_err(torch, fin.detach(), pfin.detach(), dt))
+                tag = "state and final-state gradient" if state else "no state"
+                out["max_abs_err"][f"ssd_scan {dt} {model} {tag}"] = max(errs)
+                names = "x/dt/A/B/C" + ("/state" if state else "")
+                print(f"[backward] ssd_scan {dt} {model} (b {b}, s {s}, h {h}, p {p}, "
+                      f"n {n}), {tag}: d{names} max_abs_err "
+                      + "/".join(f"{e:.3e}" for e in errs)
+                      + f" (tol {TOL[dt]}); forward y/final {fwd:.3e}")
+                del y, fin, got, py, pfin, want, ins, dy, dfin
+        ins, dy, _ = inputs(h, n, "bfloat16", False)
+        x, dtv, A, B, C, _ = ins
+        # in: x, dt, A, B, C, dy; out: dx, ddt, dA, dB, dC.  Products: the plain
+        # scan recomputed, then its backward's two a product
+        nbytes = (3 * x.numel() + 4 * B.numel()) * 2 + (2 * dtv.numel() + 2 * h) * 4
+        flops = 3 * ssd_products(b, s, h, p, n, chunk)
+        out[f"ssd_scan {model}"] = timed_backward(
+            torch, f"ssd_scan ({model}: b {b}, s {s}, h {h}, n {n}, no state)",
+            lambda i: ssd_k.ssd_scan(x, dtv, A, B, C),
+            lambda i: ssd_o.ssd_scan_backward(x, dtv, A, B, C, chunk, None, dy, None),
+            nbytes, flops)
+        del ins, dy, x, dtv, A, B, C
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1248,17 +1428,24 @@ def profile_steps(torch, eng, n: int, prepare=None, host_ops: bool = True):
     return wall, dispatches, pwall, busy, groups
 
 
+def device_events(prof) -> list:
+    """(start µs, end µs, name, is a ``record_function`` range) of every
+    device event of a profile, read from its raw results: ``prof.events()``
+    first builds the tree of every host op, which for a host-traced
+    training step takes longer than the step itself."""
+    from torch.autograd import DeviceType
+    return [(e.start_ns() / 1e3, e.end_ns() / 1e3, e.name(), e.is_user_annotation())
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA]
+
+
 def busy_by_group(prof):
     """Device busy seconds of a profile (union of kernel intervals) and
     seconds by kernel group."""
-    from torch.autograd import DeviceType
-
     # a ``record_function`` range also shows on the device timeline, as a
     # span from its first kernel to its last: not device work
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA
-                   and not getattr(e, "is_user_annotation", False)
-                   and not e.name.startswith("repro_torch::"))
+    spans = sorted((s_, e_, name) for s_, e_, name, range_ in device_events(prof)
+                   if not range_ and not name.startswith("repro_torch::"))
     busy, cur_s, cur_e = 0.0, None, None
     groups = {}
     for s_, e_, name in spans:
@@ -1928,7 +2115,7 @@ def live_migration(torch, card: str):
 
 def param_count(cfg) -> int:
     """Parameters of a dense (GQA, MLA or local/global pairs), vlm, moe,
-    hybrid or encoder-decoder config, from its shapes."""
+    ssm, hybrid or encoder-decoder config, from its shapes."""
     d, hd = cfg.d_model, cfg.n_heads * cfg.d_head
     kv = cfg.n_kv_heads * cfg.d_head
     attn = 2 * d * hd + 2 * d * kv + (hd + 2 * kv if cfg.qkv_bias else 0)
@@ -1941,12 +2128,14 @@ def param_count(cfg) -> int:
     ffn = (d * cfg.n_experts + 3 * cfg.n_experts * d * cfg.d_ff if cfg.family == "moe"
            else 3 * d * cfg.d_ff)
     head = 0 if cfg.tie_embeddings else d * cfg.vocab_size
-    if cfg.family == "hybrid":          # Mamba-2 layers + one shared block
+    if cfg.family in ("ssm", "hybrid"):     # Mamba-2 layers (+ one shared block)
         s = cfg.ssm
         di, nh = s.d_inner(d), s.n_heads(d)
         conv = di + 2 * s.n_groups * s.d_state
         mamba = (d * (2 * di + 2 * s.n_groups * s.d_state + nh) + (s.d_conv + 1) * conv
                  + 3 * nh + di + di * d + d)
+        if cfg.family == "ssm":
+            return cfg.vocab_size * d + head + d + cfg.n_layers * mamba
         return (cfg.vocab_size * d + head + d + cfg.n_ssm_layers * mamba
                 + attn + ffn + 2 * d)
     if cfg.is_encoder_decoder:          # encoder layers, enc_pos, enc_norm; ln_x + xattn
@@ -3348,156 +3537,38 @@ def serve_sharded(torch, card: str) -> dict:
 # phase 4o: training on the card
 # --------------------------------------------------------------------------- #
 def train_on_card(torch, card: str) -> dict:
-    """qwen2-1.5b whole (28 layers, bf16, tied) trained through
-    ``repro_torch.training.trainer.train`` with ``launch/train.py``'s defaults
-    (B 8, S 128, 2 microbatches, lr 3e-3, warmup 20) for 8 steps on f32
-    master weights over the reference's threefry batches, under the default
-    ``remat`` "full": every loss finite, no skipped step, the masters f32 and
-    each bf16 weight their rounding, and exactly (4L+1)·2 RMSNorm and 2L·2
-    flash-attention launches a step (two microbatch forwards, each layer's
-    forward run again in the backward; the final norm is outside the remat
-    units) and no other kernel.  Per step: host wall and tokens/s.  Then one
-    profiled step under each of "full", "none" and "dots" (a fresh optimizer
-    state each: the same work), each with its exact launch gate ("dots"
-    recomputes the layers' forwards too, "none" runs (2L+1)·2 and L·2):
-    host wall, device busy and idle share, peak memory, kernel groups, and
-    under "full" (which also traces the host) the backward ops' and AdamW's
-    device time (their profiler ranges), against the bound 6·N·tokens / 989
-    TFLOP/s + the optimizer's bytes / 3.35 TB/s.
-    Then the int8 ``compressed_allreduce`` of the trained model's gradients
-    over 4 data shards on 4 logical devices of the card, a resume check at
-    1 of 28 layers (3 steps, then 6 resuming from their checkpoint, equal bit
-    for bit to 6 uninterrupted steps) and a mamba2 step refused."""
+    """qwen2-1.5b whole (28 layers, bf16, tied) through :func:`train_family`
+    for 8 steps, with one profiled step under each of "full", "none" and
+    "dots" (a fresh optimizer state each: the same work; "dots" recomputes
+    the layers' forwards too, "none" runs (2L+1)·2 RMSNorms and L·2 flash
+    attentions a step).  Then the int8 ``compressed_allreduce`` of the
+    trained model's gradients over 4 data shards on 4 logical devices of
+    the card, a resume check at 1 of 28 layers (3 steps, then 6 resuming
+    from their checkpoint, equal bit for bit to 6 uninterrupted steps), and
+    :func:`train_family` for each of :data:`TRAIN_FAMILIES`."""
     import shutil
     import tempfile
 
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.configs import get_config
     from repro_torch.distributed.compression import compressed_allreduce
-    from repro_torch.kernels.flash_attention import ops as fa_o
-    from repro_torch.kernels.rmsnorm import ops as rms_o
     from repro_torch.launch import train as train_cli
     from repro_torch.launch.mesh import Mesh, logical_devices
-    from repro_torch.models import flags, lm, zoo
-    from repro_torch.training import data as data_lib, optim
-    from repro_torch.training.trainer import TrainConfig, make_accum_train_step, train
+    from repro_torch.models import lm, zoo
+    from repro_torch.training import data as data_lib
+    from repro_torch.training.trainer import train
 
-    args = train_cli.parser().parse_args(["--full", "--steps", "8"])
-    cfg, tcfg, dcfg = train_cli.configs(args)
+    steps = 8
+    out = train_family(torch, "qwen2-1.5b", None, steps=steps,
+                       policies=("full", "none", "dots"), keep=True)
+    model = out.pop("model")
+    cfg, tcfg, dcfg = train_cli.configs(train_cli.parser().parse_args(["--full"]))
     need(cfg.name == "qwen2-1.5b" and cfg.n_layers == 28 and cfg.tie_embeddings,
          f"unexpected config {cfg.name}")
-    need(flags.get_flag("remat") == "full", f"remat {flags.get_flag('remat')}, not full")
-    model = lm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
-    named = dict(model.named_parameters())
-    n_params = sum(p.numel() for p in model.parameters())
-    tokens = dcfg.global_batch * dcfg.seq_len
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    zero_launches()
-    stamps = [time.perf_counter()]
-    report = train(cfg, tcfg, dcfg, params=model,
-                   on_step=lambda s_, l_: stamps.append(time.perf_counter()))
-    masters = report.masters
-    counts = read_launches()
-    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    walls = [b - a for a, b in zip(stamps, stamps[1:])]
-    L, mb, steps = cfg.n_layers, tcfg.microbatches, tcfg.steps
-    per_step = {"full": {"rmsnorm": (4 * L + 1) * mb, "flash_attention": 2 * L * mb},
-                "dots": {"rmsnorm": (4 * L + 1) * mb, "flash_attention": 2 * L * mb},
-                "none": {"rmsnorm": (2 * L + 1) * mb, "flash_attention": L * mb}}
-    want = {k: v * steps for k, v in per_step["full"].items()}
-    need(len(report.losses) == steps and all(math.isfinite(x) for x in report.losses),
-         f"non-finite or missing losses {report.losses}")
-    need(report.skipped_nan == 0, f"{report.skipped_nan} steps skipped")
-    need(counts == {**{k: 0 for k in counts}, **want},
-         f"training launches {counts}, want {want} and no other kernel")
-    f32 = all(m.dtype == torch.float32 and m.device.type == "cuda" for m in masters.values())
-    rounded = sum(torch.equal(p.detach(), masters[k].to(p.dtype)) for k, p in named.items())
-    own = sum(p.dtype == torch.float32 for p in named.values())
-    need(f32 and rounded == len(named), f"masters f32 {f32}; {rounded}/{len(named)} "
-         f"weights equal their master's rounding")
-    steady = sorted(walls[1:])[len(walls[1:]) // 2]
-    print(f"[train] qwen2-1.5b whole ({n_params / 1e9:.4f} B parameters, bf16 weights on "
-          f"f32 masters), remat full, B {dcfg.global_batch}, S {dcfg.seq_len}, {mb} "
-          f"microbatches, {steps} steps over the threefry batches: losses "
-          f"{', '.join(f'{x:.4f}' for x in report.losses)}; host wall per step "
-          f"{', '.join(f'{w:.3f}' for w in walls)} s (median of steps 2-{steps} "
-          f"{steady:.3f} s, {tokens / steady:.0f} tokens/s); peak memory {peak_gib:.2f} "
-          f"GiB; launches {counts} (per step {counts['rmsnorm'] // steps} RMSNorm = "
-          f"(4L+1)·{mb}, {counts['flash_attention'] // steps} flash attention = 2L·{mb})")
-    print(f"[train] masters: {len(masters)} leaves, all f32 on the card ({own} f32 "
-          f"weights, the norm scales, are their own master); {rounded}/{len(named)} model "
-          f"weights equal "
-          f"their master's rounding; held on the card at the last step: "
-          f"{report.held_bytes} bytes")
-
-    # one more step under the profiler per remat policy (a fresh optimizer
-    # state each: the same work)
-    step_fn = make_accum_train_step(cfg, tcfg.opt, mb)
-    batch = {k: v.to("cuda", torch.int32)
-             for k, v in data_lib.batch_at(dcfg, steps).items()}
-
-    def kernel_ms(op):          # device time of the kernels an op and its children launched
-        return (sum(k.duration for k in op.kernels) / 1e3
-                + sum(kernel_ms(c) for c in op.cpu_children))
-
-    # f32 master in + out, f32 gradient in, m and v in + out, bf16 weight out
-    opt_bytes = 30 * n_params
-    b_model = 6 * n_params * tokens / PEAK_FLOPS["bfloat16"] * 1e3
-    b_opt = opt_bytes / PEAK_BYTES * 1e3
-    policies = {}
-    for pol in ("full", "none", "dots"):
-        # the host ops and their ranges are traced under "full" alone: the
-        # CPU trace of a step costs seconds to read back
-        acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if pol == "full" else [])
-        state = optim.init_state(masters)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        zero_launches()
-        with flags.scoped(remat=pol), profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            step_fn(model, state, batch, masters)
-            torch.cuda.synchronize()
-            pwall = time.perf_counter() - t0
-        got = read_launches()
-        pol_peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        del state
-        need(got == {**{k: 0 for k in got}, **per_step[pol]},
-             f"remat {pol}: a step launched {got}, want {per_step[pol]} and no other kernel")
-        busy, groups = busy_by_group(prof)
-        ranges = {}
-        for e in (prof.events() if pol == "full" else ()):
-            if e.name in (fa_o.BACKWARD_RANGE, rms_o.BACKWARD_RANGE, optim.RANGE):
-                ranges[e.name] = ranges.get(e.name, 0.0) + sum(kernel_ms(c) for c in
-                                                               e.cpu_children)
-        bwd = {"flash_attention": ranges.get(fa_o.BACKWARD_RANGE, 0.0),
-               "rmsnorm": ranges.get(rms_o.BACKWARD_RANGE, 0.0)}
-        opt_ms = ranges.get(optim.RANGE, 0.0)
-        idle = 1 - busy / pwall
-        gtxt = ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in
-                         sorted(groups.items(), key=lambda kv: -kv[1]))
-        host = (f"backward ops (their profiler ranges) flash attention "
-                f"{bwd['flash_attention']:.2f} ms, rmsnorm {bwd['rmsnorm']:.2f} ms; AdamW "
-                f"(its range) {opt_ms:.2f} ms" if pol == "full"
-                else "device activity traced alone (no host ranges)")
-        print(f"[train] profiled step, remat {pol}: host wall {pwall * 1e3:.2f} ms, device "
-              f"busy {busy * 1e3:.2f} ms (idle {100 * idle:.1f}%), peak memory "
-              f"{pol_peak:.2f} GiB; launches {per_step[pol]} (gate met); kernels: {gtxt}; "
-              f"forward kernels flash_attention {groups.get('flash_attention', 0) * 1e3:.2f} "
-              f"ms, rmsnorm {groups.get('rmsnorm', 0) * 1e3:.2f} ms; {host}; bound "
-              f"{b_model:.3f} ms (6·N·tokens at 989 TFLOP/s) + {b_opt:.3f} ms (optimizer "
-              f"{opt_bytes / 1e9:.2f} GB at 3.35 TB/s) = {b_model + b_opt:.3f} ms")
-        policies[pol] = dict(wall_ms=pwall * 1e3, busy_ms=busy * 1e3, idle=idle,
-                             peak_gib=pol_peak, launches=got,
-                             groups_ms={k: v * 1e3 for k, v in groups.items()},
-                             backward_ms=bwd, adamw_ms=opt_ms)
-    del masters
-    report.masters = {}
-    torch.cuda.empty_cache()
 
     # int8 compressed all-reduce of the trained model's gradients: 4 data
     # shards of 2 sequences, one per logical device of the card
+    named = dict(model.named_parameters())
+    n_params = out["params"]
     batch = {k: v.cuda() for k, v in data_lib.batch_at(dcfg, steps + 1).items()}
     plist = list(named.values())
     shard_grads = []
@@ -3560,27 +3631,247 @@ def train_on_card(torch, card: str) -> dict:
     print(f"[train] resume at 1 of 28 layers: 6 uninterrupted steps {whole.losses}; 3 "
           f"steps, then 6 resumed from step {rest.resumed_from}: {rest.losses}, equal bit "
           f"for bit, final parameters equal ({r_wall:.1f} s with 2 checkpoint writes)")
+    whole.masters = first.masters = rest.masters = {}    # their f32 masters, 3.35 GB
     del whole_m, rest_m
     torch.cuda.empty_cache()
 
-    # a family whose kernel has no gradient on the card yet
-    ssm = dataclasses.replace(get_config("mamba2-1.3b"), n_layers=1)
-    small = data_lib.DataConfig(vocab_size=ssm.vocab_size, seq_len=64, global_batch=2)
-    try:
-        train(ssm, TrainConfig(steps=1), small)
-        raise RuntimeError("a mamba2 training step on the card did not raise")
-    except NotImplementedError as e:
-        refusal = str(e)
-    print(f"[train] mamba2 (1 layer) on the card: NotImplementedError: {refusal}")
+    # the moe, ssm and hybrid families, through moe_gmm and the SSD scan
+    families = {arch: train_family(torch, arch, n) for arch, n in TRAIN_FAMILIES}
+    return dict(out, compress_wall_ms=c_wall * 1e3, compress_worst=worst,
+                resume_losses=rest.losses, resume_wall_s=r_wall, families=families)
+
+
+def range_ms(prof, names) -> dict:
+    """Device ms of the kernels inside each profiler range of ``names``,
+    summed over its calls: a range traced with the host ops also shows on
+    the device timeline, from its first kernel to its last, and the one
+    stream runs nothing else in between, so these are the sums of walking
+    each range's host ops down to their kernels; 0 for each when there is
+    no host trace (``prof`` None)."""
+    import bisect
+    out = {n: 0.0 for n in names}
+    events = device_events(prof) if prof is not None else []
+    kernels = sorted((s_, e_) for s_, e_, name, range_ in events
+                     if not range_ and not name.startswith("repro_torch::"))
+    starts = [k[0] for k in kernels]
+    for s_, e_, name, range_ in events:
+        if range_ and name in out:
+            i = bisect.bisect_left(starts, s_)
+            while i < len(kernels) and kernels[i][0] < e_:
+                out[name] += (kernels[i][1] - kernels[i][0]) / 1e3
+                i += 1
+    return out
+
+
+def family_launches(cfg, microbatches: int, remat: str = "full") -> dict:
+    """Kernel launches of one training step under ``remat``, from the
+    model's structure: a microbatch's forward runs each Mamba layer's two
+    RMSNorms and SSD scan, each shared block's or decoder layer's two
+    RMSNorms and flash attention (and ``moe_gmm`` for a moe layer), and the
+    final norm; under "full" and "dots" the backward runs every remat
+    unit's forward again (each layer, a zamba2 group with its shared block,
+    a tail layer), Functions and all; a backward launches no kernel of its
+    own.  M Mamba layers, G shared blocks, L decoder layers, r 2 (1 under
+    "none"): RMSNorm r·(2M + 2G + 2L) + 1, flash attention r·(G + L),
+    ``moe_gmm`` r·L (moe), SSD scan r·M a microbatch."""
+    from repro_torch.models import lm
+    if cfg.family == "hybrid":
+        G, per, tail = lm._hybrid_shape(cfg)
+        M, L = G * per + tail, 0
+    elif cfg.family == "ssm":
+        G, M, L = 0, cfg.n_layers, 0
+    else:
+        G, M, L = 0, 0, cfg.n_layers
+    r = 1 if remat == "none" else 2
+    per_mb = {"rmsnorm": r * (2 * M + 2 * G + 2 * L) + 1, "flash_attention": r * (G + L),
+              "moe_gmm": r * L if cfg.family == "moe" else 0, "ssd_scan": r * M}
+    return {k: v * microbatches for k, v in per_mb.items()}
+
+
+def train_family(torch, arch: str, n_layers, steps: int = FAMILY_STEPS,
+                 policies=("full",), keep: bool = False) -> dict:
+    """Phase 4o's training of one model: ``arch`` at full width (cut to
+    ``n_layers`` when given; at most 1.8 B parameters, by :func:`param_count`
+    before anything is allocated: 30 B a parameter at AdamW's peak on f32
+    masters) trained through ``trainer.train`` with ``launch/train.py``'s
+    defaults (B 8, S 128, 2 microbatches, lr 3e-3, warmup 20) on f32 masters
+    over the reference's threefry batches under remat "full" for ``steps``
+    steps: every loss finite, no skipped step, the masters f32 and each bf16
+    weight their rounding, exactly :func:`family_launches` a step and no
+    other kernel.  Per step: host wall, and tokens/s at the median of steps
+    2 on.  Then one profiled step under each remat policy of ``policies``
+    (a fresh optimizer state each: the same work), each with its exact
+    launch gate: host wall, device busy and idle share, peak memory, kernel
+    groups, and under "full" (which alone also traces the host: the CPU
+    trace of a step costs seconds to read back) device ms of the forward
+    kernels, of the backward ranges and of AdamW, against the bound
+    6·N·tokens / 989 TFLOP/s (N the parameters every token multiplies: under
+    the dense mix all 8 experts; an untied embedding is a lookup) + 30 B a
+    parameter / 3.35 TB/s.  For the moe family, one more step under the
+    capacity dispatch, gated alike.  The model is freed before the next, or
+    with ``keep`` returned under "model" (its masters freed)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.flash_attention import ops as fa_o
+    from repro_torch.kernels.moe_gmm import ops as moe_o
+    from repro_torch.kernels.rmsnorm import ops as rms_o
+    from repro_torch.kernels.ssd_scan import ops as ssd_o
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import flags, lm
+    from repro_torch.training import data as data_lib, optim
+    from repro_torch.training.trainer import make_accum_train_step, train
+
+    args = train_cli.parser().parse_args(["--arch", arch, "--full", "--steps", str(steps)])
+    cfg, tcfg, dcfg = train_cli.configs(args)
+    whole = cfg.n_layers
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    need(flags.get_flag("remat") == "full" and flags.get_flag("moe_impl") == "dense",
+         f"flags remat {flags.get_flag('remat')}, moe_impl {flags.get_flag('moe_impl')}")
+    n_params = param_count(cfg)
+    need(n_params <= 1.8e9, f"{arch} at {cfg.n_layers} layers has {n_params} parameters")
+    gc.collect()
     torch.cuda.empty_cache()
-    return dict(losses=report.losses, step_wall_s=walls, median_step_s=steady,
-                tokens_per_s=tokens / steady, peak_gib=peak_gib, params=n_params,
-                launches=counts, held_bytes=report.held_bytes, shape=(dcfg.global_batch,
-                                                                      dcfg.seq_len),
-                profiled=policies, bound_ms=b_model + b_opt, bound_model_ms=b_model,
-                bound_optimizer_ms=b_opt, compress_wall_ms=c_wall * 1e3,
-                compress_worst=worst, resume_losses=rest.losses, resume_wall_s=r_wall,
-                refusal=refusal)
+    model = lm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    named = dict(model.named_parameters())
+    need(sum(p.numel() for p in named.values()) == n_params,
+         f"{arch}: param_count {n_params}, the model holds "
+         f"{sum(p.numel() for p in named.values())}")
+    mb = tcfg.microbatches
+    per_step = {pol: family_launches(cfg, mb, pol) for pol in ("full",) + tuple(policies)}
+    tokens = dcfg.global_batch * dcfg.seq_len
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    stamps = [time.perf_counter()]
+    report = train(cfg, tcfg, dcfg, params=model,
+                   on_step=lambda s_, l_: stamps.append(time.perf_counter()))
+    counts = read_launches()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    walls = [b - a for a, b in zip(stamps, stamps[1:])]
+    steady = sorted(walls[1:])[len(walls[1:]) // 2]
+    masters = report.masters
+    want = {k: v * steps for k, v in per_step["full"].items()}
+    need(len(report.losses) == steps and all(math.isfinite(x) for x in report.losses),
+         f"{arch}: non-finite or missing losses {report.losses}")
+    need(report.skipped_nan == 0, f"{arch}: {report.skipped_nan} steps skipped")
+    need(counts == {**{k: 0 for k in counts}, **want},
+         f"{arch}: training launches {counts}, want {want} and no other kernel")
+    total = dict(counts)
+
+    # one more step under the profiler per remat policy (a fresh optimizer
+    # state each: the same work)
+    step_fn = make_accum_train_step(cfg, tcfg.opt, mb)
+    batch = {k: v.to("cuda", torch.int32)
+             for k, v in data_lib.batch_at(dcfg, steps).items()}
+    n_mm = n_params - (0 if cfg.tie_embeddings else cfg.vocab_size * cfg.d_model)
+    b_model = 6 * n_mm * tokens / PEAK_FLOPS["bfloat16"] * 1e3
+    b_opt = 30 * n_params / PEAK_BYTES * 1e3
+    ranges_of = {"flash_attention": fa_o, "rmsnorm": rms_o, "moe_gmm": moe_o,
+                 "ssd_scan": ssd_o}
+    losses, profiled = list(report.losses), {}
+    for pol in policies:
+        acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if pol == "full" else [])
+        state = optim.init_state(masters)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        with flags.scoped(remat=pol), profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            loss, state, ok = step_fn(model, state, batch, masters)
+            torch.cuda.synchronize()
+            pwall = time.perf_counter() - t0
+        got = read_launches()
+        p_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        del state
+        need(bool(ok) and math.isfinite(float(loss)), f"{arch}: profiled step loss {loss}")
+        need(got == {**{k: 0 for k in got}, **per_step[pol]},
+             f"{arch}, remat {pol}: a step launched {got}, want {per_step[pol]} and no "
+             f"other kernel")
+        total = {k: total[k] + got[k] for k in total}
+        losses.append(float(loss))
+        busy, groups = busy_by_group(prof)
+        ranges = range_ms(prof if pol == "full" else None,
+                          tuple(o.BACKWARD_RANGE for o in ranges_of.values()) + (optim.RANGE,))
+        del prof
+        bwd = {k: ranges[o.BACKWARD_RANGE] for k, o in ranges_of.items() if per_step[pol][k]}
+        adamw = ranges[optim.RANGE]
+        fwd = {k: groups.get(k, 0.0) * 1e3 for k in bwd}
+        idle = 1 - busy / pwall
+        gtxt = ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in
+                         sorted(groups.items(), key=lambda kv: -kv[1]))
+        host = ("backward ops (their profiler ranges) "
+                + ", ".join(f"{k} {v:.2f} ms" for k, v in bwd.items())
+                + f"; AdamW (its range) {adamw:.2f} ms" if pol == "full"
+                else "device activity traced alone (no host ranges)")
+        print(f"[train] {arch} profiled step, remat {pol}: loss {float(loss):.4f}, host "
+              f"wall {pwall * 1e3:.2f} ms, device busy {busy * 1e3:.2f} ms (idle "
+              f"{100 * idle:.1f}%), peak memory {p_peak:.2f} GiB; launches {per_step[pol]} "
+              f"(gate met); kernels: {gtxt}; forward kernels "
+              + ", ".join(f"{k} {v:.2f} ms" for k, v in fwd.items())
+              + f"; {host}; bound {b_model:.3f} ms (6·N·tokens, N {n_mm / 1e9:.4f} B "
+              f"multiplying every token, at 989 TFLOP/s) + {b_opt:.3f} ms (30 B a parameter "
+              f"at 3.35 TB/s) = {b_model + b_opt:.3f} ms")
+        profiled[pol] = dict(wall_ms=pwall * 1e3, busy_ms=busy * 1e3, idle=idle,
+                             peak_gib=p_peak, launches=got,
+                             groups_ms={k: v * 1e3 for k, v in groups.items()},
+                             forward_ms=fwd, backward_ms=bwd, adamw_ms=adamw)
+
+    dispatch = None
+    if cfg.family == "moe":       # one step under the capacity dispatch
+        batch = {k: v.to("cuda", torch.int32)
+                 for k, v in data_lib.batch_at(dcfg, steps + 1).items()}
+        state = optim.init_state(masters)
+        zero_launches()
+        with flags.scoped(moe_impl="dispatch"):
+            t0 = time.perf_counter()
+            d_loss, state, d_ok = step_fn(model, state, batch, masters)
+            torch.cuda.synchronize()
+            d_wall = time.perf_counter() - t0
+        d_got = read_launches()
+        del state
+        need(bool(d_ok) and math.isfinite(float(d_loss)),
+             f"{arch}: dispatch step loss {d_loss}")
+        need(d_got == {**{k: 0 for k in d_got}, **per_step["full"]},
+             f"{arch}: a dispatch step launched {d_got}, want {per_step['full']} and no "
+             f"other kernel")
+        dispatch = dict(loss=float(d_loss), wall_ms=d_wall * 1e3, launches=d_got)
+        total = {k: total[k] + d_got[k] for k in total}
+        losses.append(float(d_loss))
+        print(f"[train] {arch} one step under the capacity dispatch: loss "
+              f"{dispatch['loss']:.4f}, host wall {dispatch['wall_ms']:.2f} ms, launches "
+              f"{per_step['full']} (gate met)")
+    f32 = all(m.dtype == torch.float32 and m.device.type == "cuda" for m in masters.values())
+    rounded = sum(torch.equal(p.detach(), masters[k].to(p.dtype)) for k, p in named.items())
+    need(f32 and rounded == len(named), f"{arch}: masters f32 {f32}; {rounded}/{len(named)} "
+         f"weights equal their master's rounding")
+    cut = f"{cfg.n_layers} of {whole} layers" if n_layers is not None else \
+        f"whole ({whole} layers)"
+    print(f"[train] {arch} {cut} ({n_params / 1e9:.4f} B parameters, bf16 weights on "
+          f"f32 masters), remat full, B {dcfg.global_batch}, S {dcfg.seq_len}, {mb} "
+          f"microbatches, {steps} steps over the threefry batches: losses "
+          f"{', '.join(f'{x:.4f}' for x in report.losses)}; host wall per step "
+          f"{', '.join(f'{w:.3f}' for w in walls)} s (median of steps 2-{steps} "
+          f"{steady:.3f} s, {tokens / steady:.0f} tokens/s); peak memory {peak_gib:.2f} "
+          f"GiB; launches a step {per_step['full']} (gate met over {steps} steps: "
+          f"{counts}); {len(masters)} masters f32 on the card, {rounded}/{len(named)} "
+          f"weights equal their master's rounding; held on the card at the last step: "
+          f"{report.held_bytes} bytes")
+    held = report.held_bytes
+    report.masters = {}
+    del named, masters, batch, report
+    if not keep:
+        del model
+        model = None
+    torch.cuda.empty_cache()
+    out = dict(layers=cfg.n_layers, params=n_params, losses=losses, step_wall_s=walls,
+               median_step_s=steady, tokens_per_s=tokens / steady, peak_gib=peak_gib,
+               per_step=per_step, launches=total, held_bytes=held,
+               shape=(dcfg.global_batch, dcfg.seq_len), profiled=profiled,
+               bound_ms=b_model + b_opt, bound_model_ms=b_model, bound_optimizer_ms=b_opt,
+               dispatch=dispatch)
+    if keep:
+        out["model"] = model
+    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -3825,20 +4116,22 @@ def card_vs_cpu(torch, arch: str, cpu_dtype: str = "float32",
     return worst
 
 
-def card_vs_cpu_train(torch, n_layers: int = 2) -> float:
-    """One training step's loss and gradients of qwen2-1.5b at ``n_layers``
-    of 28 layers, full width, in f32 (B 4, S 128): the card (RMSNorm and
-    flash-attention kernels forward, the explicit backward ops) against the
-    CPU (plain versions) with the same weights and batch.  The loss is held
-    within 1e-3 of itself and every gradient within 1e-3 of its leaf's
-    largest magnitude; returns the largest such relative difference."""
+def card_vs_cpu_train(torch, arch: str = "qwen2-1.5b", n_layers: int = 2, batch: int = 4,
+                      seq: int = 128) -> float:
+    """One training step's loss and gradients of ``arch`` at ``n_layers``
+    layers, full width, in f32 (B ``batch``, S ``seq``): the card (the
+    kernels forward, their backwards' explicit ops) against the CPU (plain
+    versions forward, the same backward ops) with the same weights and
+    batch.  The loss is held within 1e-3 of itself and every gradient
+    within 1e-3 of its leaf's largest magnitude; returns the largest such
+    relative difference."""
     from repro_torch.configs import get_config
     from repro_torch.models import lm, zoo
     from repro_torch.training import data as data_lib
 
-    cfg = dataclasses.replace(get_config("qwen2-1.5b"), n_layers=n_layers, dtype="float32")
-    batch = data_lib.batch_at(data_lib.DataConfig(vocab_size=cfg.vocab_size, seq_len=128,
-                                                  global_batch=4), 0)
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers, dtype="float32")
+    data = data_lib.batch_at(data_lib.DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                                 global_batch=batch), 0)
     m_gpu = lm.init_params(cfg, torch.Generator(device="cuda").manual_seed(11), "cuda")
     m_cpu = lm.LM(cfg, "cpu")
     with torch.no_grad():
@@ -3849,20 +4142,23 @@ def card_vs_cpu_train(torch, n_layers: int = 2) -> float:
         params = list(m.parameters())
         for p in params:
             p.requires_grad_(True)
-        loss = zoo.loss_fn(m, cfg, {k: v.to(key) for k, v in batch.items()})
+        loss = zoo.loss_fn(m, cfg, {k: v.to(key) for k, v in data.items()})
         out[key] = (float(loss.detach()), [g.cpu() for g in torch.autograd.grad(loss, params)])
+        del loss
     (l_gpu, g_gpu), (l_cpu, g_cpu) = out["cuda"], out["cpu"]
     rel = [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
            for a, b in zip(g_gpu, g_cpu)]
     worst = max(rel)
     names = [n for n, _ in m_cpu.named_parameters()]
-    need(abs(l_gpu - l_cpu) <= 1e-3 * abs(l_cpu), f"loss {l_gpu} on the card, {l_cpu} on the CPU")
-    need(worst <= 1e-3, f"gradient {names[rel.index(worst)]} differs by {worst:.3e} of its max")
-    print(f"[card-vs-cpu] qwen2-1.5b train step, {n_layers} layers at full width, f32, B 4, "
-          f"S 128: loss {l_gpu:.6f} on the card, {l_cpu:.6f} on the CPU; largest gradient "
-          f"difference {worst:.3e} of its leaf's max ({names[rel.index(worst)]}) over "
-          f"{len(rel)} leaves (tol 1e-3)")
-    del m_gpu, out
+    need(abs(l_gpu - l_cpu) <= 1e-3 * abs(l_cpu), f"{arch}: loss {l_gpu} on the card, "
+         f"{l_cpu} on the CPU")
+    need(worst <= 1e-3, f"{arch}: gradient {names[rel.index(worst)]} differs by "
+         f"{worst:.3e} of its max")
+    print(f"[card-vs-cpu] {arch} train step, {n_layers} layers at full width, f32, B "
+          f"{batch}, S {seq}: loss {l_gpu:.6f} on the card, {l_cpu:.6f} on the CPU; largest "
+          f"gradient difference {worst:.3e} of its leaf's max ({names[rel.index(worst)]}) "
+          f"over {len(rel)} leaves (tol 1e-3)")
+    del m_gpu, m_cpu, out, g_gpu, g_cpu
     torch.cuda.empty_cache()
     return worst
 
@@ -3949,6 +4245,10 @@ def main(argv=None) -> int:
     phases = {}
 
     def timed(label, fn, *args):
+        # an earlier phase's tensors held in reference cycles would count
+        # in this phase's peak memory until the collector found them
+        gc.collect()
+        torch.cuda.empty_cache()
         t = time.monotonic()
         out = fn(torch, card, *args)
         phases[label] = time.monotonic() - t
@@ -3989,7 +4289,11 @@ def main(argv=None) -> int:
     # at 532.4 s on a slower host it also cut mamba2 in 4b to 6 layers,
     # mixtral in 4e to 2 and minicpm3 in 4g to 4 (17.2, 18.2 and 15.3 s);
     # 4o on f32 masters with three remat policies (63.6 s; the command
-    # 529.4 s on a slow host) cut 4n to 12 layers (45.3 s at 14)
+    # 529.4 s on a slow host) cut 4n to 12 layers (45.3 s at 14); 4o's
+    # moe, ssm and hybrid families with their phase-3 and phase-5 checks
+    # fit with no further cut once ``device_events`` read the profiler's
+    # raw device events (the command 679.8 s before it, on an H100 80GB
+    # HBM3 at 700 W)
     faults = timed("4l", serve_faults)
     autopoiesis = timed("4m", serve_autopoiesis)
     sharded = timed("4n", serve_sharded)
@@ -4005,17 +4309,20 @@ def main(argv=None) -> int:
     # and the sharded and pipelined paths of 4n (qwen2 and the EP mixtral),
     # and the training forwards of 4o to rows 2-3
     q_counts += [sharded["launches"], training["launches"]]
+    # 4o's moe, ssm and hybrid families (each step's forwards and their
+    # recompute) to rows 2, 3, 5 and 6
+    t_counts = [f["launches"] for f in training["families"].values()]
     launches = {"paged_flash_decode": counts["paged_flash_decode"]
                 + sum(c["paged_flash_decode"] for c in q_counts),
                 "flash_attention": counts["flash_attention"]
-                + sum(c["flash_attention"] for c in w_counts + q_counts),
+                + sum(c["flash_attention"] for c in w_counts + q_counts + t_counts),
                 "rmsnorm": counts["rmsnorm"]
-                + sum(c["rmsnorm"] for c in w_counts + q_counts),
+                + sum(c["rmsnorm"] for c in w_counts + q_counts + t_counts),
                 "flash_decode": contig_counts["flash_decode"]
                 + sum(c["flash_decode"] for c in w_counts),
                 "moe_gmm": mixtral["dense"]["launches"]["moe_gmm"]
-                + sharded["launches"]["moe_gmm"],
-                "ssd_scan": ssm_counts["ssd_scan"]}
+                + sharded["launches"]["moe_gmm"] + sum(c["moe_gmm"] for c in t_counts),
+                "ssd_scan": ssm_counts["ssd_scan"] + sum(c["ssd_scan"] for c in t_counts)}
     need(all(n > 0 for n in launches.values()), f"a kernel never launched: {launches}")
     # phase 5
     t5 = time.monotonic()
@@ -4044,7 +4351,13 @@ def main(argv=None) -> int:
     # further from f32 there (0.0240), so the card is held to the CPU's own
     # bf16 spread, as zamba2 is
     card_vs_cpu(torch, "whisper-tiny", "float32", elementwise=False, n_layers=4, spread=True)
-    card_vs_cpu_train(torch)
+    train_rel = {"qwen2-1.5b": card_vs_cpu_train(torch)}
+    # the families that train through moe_gmm and the SSD scan: mamba2 at
+    # 2 layers, mixtral at 1 (1.71 B parameters in f32: its tokens cut to
+    # 32 keep the CPU's step to seconds), zamba2 at one group of 5 Mamba-2
+    # layers and the shared block
+    for arch, n, b, s in TRAIN_VS_CPU:
+        train_rel[arch] = card_vs_cpu_train(torch, arch, n, b, s)
     print(f"[time] phase 5: {time.monotonic() - t5:.1f}s")
 
     # phase 6
@@ -4059,7 +4372,8 @@ def main(argv=None) -> int:
                       "mixtral": mixtral, "registry": registry, "mla": mla, "ring": ring,
                       "gemma2": gemma2, "zamba2": zamba2, "whisper": whisper,
                       "faults": faults, "autopoiesis": autopoiesis, "sharded": sharded,
-                      "training": training, "dryrun": dry, "backward": rows["backward"],
+                      "training": training, "train_vs_cpu": train_rel, "dryrun": dry,
+                      "backward": rows["backward"],
                       "shard_kernels": rows["shard_kernels"],
                       "whisper_kernels": rows["whisper"], "head_dims": rows["head_dims"],
                       "moe_gmm_shapes": rows["moe_gmm_shapes"],

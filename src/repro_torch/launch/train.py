@@ -2,10 +2,11 @@
 [--device cuda|cpu]`` (port of ``src/repro/launch/train.py``).
 
 Runs the fault-tolerant training loop (reduced config by default; ``--full``
-uses the real architecture) on the CUDA card unless ``--device cpu``.  On the
-card the dense, vlm, MLA, local/global-pair and encoder-decoder families
-train; the moe, ssm and hybrid families raise there (their kernels have no
-gradient on the card yet) and train on the CPU.
+uses the real architecture) on the CUDA card unless ``--device cpu``.  Every
+family trains on either device: on the card the forward runs the CUDA
+kernels (RMSNorm, flash attention, ``moe_gmm``, the SSD scan) and their
+backwards are explicit PyTorch ops, e.g. ``--arch mamba2-1.3b --full
+--steps 8``.
 """
 from __future__ import annotations
 

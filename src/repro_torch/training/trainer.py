@@ -21,10 +21,9 @@ The model's parameters are trained in place, so the trainer turns on
 ``requires_grad`` for the model it trains; serving models keep it off.  The
 forward checkpoints its layers as the ``remat`` flag says
 (:mod:`repro_torch.models.flags`, "full" by default).  On the card the
-forward runs the RMSNorm and flash-attention kernels, whose gradients are
-explicit PyTorch ops; the moe, ssm and hybrid families raise there
-(``moe_gmm`` and the SSD scan have no gradient on the card yet), and train
-on the CPU, where the plain versions differentiate.
+forward runs the RMSNorm, flash-attention, ``moe_gmm`` and SSD-scan
+kernels, whose gradients are explicit PyTorch ops (``kernels/*/ops.py``),
+so every family trains there as on the CPU.
 """
 from __future__ import annotations
 

@@ -1,8 +1,9 @@
 """Gradients of the PyTorch port against the JAX reference, in f32 on the
-CPU: the explicit backward of the RMSNorm and flash-attention ops against
-``jax.grad`` of the JAX package's plain versions (2e-5), and the whole
-model's ``zoo.loss_fn`` and every parameter's gradient against
-``jax.value_and_grad`` of the reference's (loss 1e-5, each leaf within
+CPU: the explicit backward of the RMSNorm, flash-attention, ``moe_gmm`` and
+SSD-scan ops against ``jax.grad`` of the JAX package's plain versions (2e-5;
+``moe_gmm`` and the SSD scan also in bf16, 2e-2 of each leaf's largest
+magnitude), and the whole model's ``zoo.loss_fn`` and every parameter's
+gradient against ``jax.value_and_grad`` of the reference's (loss 1e-5, each leaf within
 1e-4 of its largest magnitude: f32 rounding differs between XLA's and
 PyTorch's CPU kernels and accumulates over the layers).  The port gets the
 JAX weights through ``params_from_jax``."""
@@ -20,10 +21,10 @@ from repro.kernels.rmsnorm.ref import rmsnorm_ref as jax_rms
 from repro.models import lm as jlm
 from repro.models import zoo as jzoo
 from repro_torch.configs import get_config as tget_config
-from repro_torch.kernels import no_grad_on_card
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.moe_gmm import ops as moe_ops
 from repro_torch.kernels.rmsnorm import ops as rms_ops
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models import lm as tlm
 from repro_torch.models import zoo as tzoo
 
@@ -144,30 +145,168 @@ def test_flash_attention_grad_refuses_kv_len_and_page_tables():
                                ptab=torch.zeros(2, 2, dtype=torch.int32))
 
 
-def test_kernels_without_a_gradient_refuse_it_on_the_card_only():
-    """``moe_gmm`` and the SSD scan have no gradient on the card: the guard
-    raises for an input that requires grad (and names the ROADMAP item),
-    never under ``no_grad``; on the CPU the plain versions differentiate."""
-    w = torch.zeros(3, 4, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
-        no_grad_on_card("moe_gmm", None, w)
+MOE_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _leaf_close(got, want, tol, what=""):
+    """|got − want| within ``tol`` of the leaf's largest magnitude."""
+    g = got.detach().float().numpy()
+    w = np.asarray(want, dtype=np.float32)
+    assert g.shape == w.shape, (what, g.shape, w.shape)
+    scale = max(float(np.abs(w).max()), 1e-12)
+    err = float(np.abs(g - w).max())
+    assert err <= tol * scale, (what, err, scale)
+
+
+@pytest.mark.parametrize("shared", [False, True], ids=["packed", "stride0"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_gmm_backward_matches_jax_grad(dtype, shared):
+    """dx, dWg, dWu, dWd of the port's op against ``jax.vjp`` of the JAX
+    plain version on the same inputs, with a plain (E, C, D) ``x`` (a packed
+    dispatch buffer) or one copy of the tokens expanded over the experts
+    (stride 0, the dense mix): there dx is summed over the experts by
+    ``expand``'s backward, as JAX's is by the broadcast's."""
+    from repro.kernels.moe_gmm.ref import moe_gmm_ref as jax_moe
+    E, C, D, F = 3, 10, 32, 48
+    rng = np.random.default_rng(10)
+    xs = rng.standard_normal((1 if shared else E, C, D)).astype(np.float32)
+    ws = [(rng.standard_normal(sh) / np.sqrt(sh[1])).astype(np.float32)
+          for sh in ((E, D, F), (E, D, F), (E, F, D))]
+    dy = rng.standard_normal((E, C, D)).astype(np.float32)
+    jdt = JDT[dtype]
+    jx = jnp.asarray(xs, jdt)
+    jw = [jnp.asarray(w, jdt) for w in ws]
+    f = (lambda x, *w: jax_moe(jnp.broadcast_to(x, (E, C, D)), *w)) if shared else jax_moe
+    jy, vjp = jax.vjp(f, jx, *jw)
+    want = vjp(jnp.asarray(dy, jdt))
+    tx = torch.tensor(xs, dtype=TDT[dtype], requires_grad=True)
+    tw = [torch.tensor(w, dtype=TDT[dtype], requires_grad=True) for w in ws]
+    xin = tx.expand(E, C, D) if shared else tx
+    y = moe_ops.moe_gmm(xin, *tw)
+    assert type(y.grad_fn).__name__ == "_MoEGMMBackward"
+    y.backward(torch.tensor(dy, dtype=TDT[dtype]))
+    tol = MOE_TOL[dtype]
+    _leaf_close(y, np.asarray(jy, np.float32), tol, "y")
+    for name, got, w in zip(("x", "w_gate", "w_up", "w_down"), [tx] + tw, want):
+        assert got.grad.dtype == TDT[dtype]
+        _leaf_close(got.grad, np.asarray(w, np.float32), tol, name)
+
+
+SSD_CASES = {   # (s, chunk, initial state, cotangent on the final state)
+    "state_dfinal_s16_c4": (16, 4, True, True),
+    "state_s12_c6": (12, 6, True, False),
+    "no_state_s16_c4": (16, 4, False, False),
+    "no_state_dfinal_s12_c6": (12, 6, False, True),
+}
+
+
+def _ssd_inputs(s, b=2, h=3, p=4, n=5, seed=11):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    dt = rng.uniform(0.01, 0.5, (b, s, h)).astype(np.float32)
+    A = -np.exp(rng.uniform(0.0, 1.0, h)).astype(np.float32)
+    B = rng.standard_normal((b, s, 1, n)).astype(np.float32)
+    C = rng.standard_normal((b, s, 1, n)).astype(np.float32)
+    st = rng.standard_normal((b, h, p, n)).astype(np.float32)
+    dy = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    dfin = rng.standard_normal((b, h, p, n)).astype(np.float32)
+    return x, dt, A, B, C, st, dy, dfin
+
+
+@pytest.mark.parametrize("case", sorted(SSD_CASES))
+def test_ssd_scan_backward_matches_jax_grad(case):
+    """The gradients of x, dt, A, B, C and the initial state through the
+    port's op against ``jax.vjp`` of the reference's ``ssd_chunked`` in
+    f32, with and without a carried state and a cotangent on the final
+    state (none: the port's backward gets no final-state gradient at all,
+    as in training, where the state is not read)."""
+    from repro.models.ssd import ssd_chunked
+    s, chunk, with_state, with_dfin = SSD_CASES[case]
+    x, dt, A, B, C, st, dy, dfin = _ssd_inputs(s)
+    if not with_dfin:
+        dfin = np.zeros_like(dfin)
+    args = [x, dt, A, B, C] + ([st] if with_state else [])
+    (jy, jfin), vjp = jax.vjp(
+        lambda *a: ssd_chunked(*a[:5], chunk, a[5] if with_state else None), *args)
+    want = vjp((jnp.asarray(dy), jnp.asarray(dfin)))
+    ts = [torch.tensor(a, requires_grad=True) for a in args]
+    y, fin = ssd_ops.ssd_scan(*ts[:5], chunk, ts[5] if with_state else None)
+    assert type(y.grad_fn).__name__ == "_SSDScanBackward"
+    if with_dfin:
+        torch.autograd.backward([y, fin], [torch.from_numpy(dy), torch.from_numpy(dfin)])
+    else:
+        y.backward(torch.from_numpy(dy))
+    _leaf_close(y, jy, TOL, "y")
+    _leaf_close(fin, jfin, TOL, "final_state")
+    for name, t, w in zip(("x", "dt", "A", "B", "C", "initial_state"), ts, want):
+        _leaf_close(t.grad, w, TOL, name)
+
+
+def test_ssd_scan_backward_matches_jax_grad_in_bf16():
+    """x, B, C and the state in bf16 (dt and A f32, as the model feeds
+    them): the port's plain version computes in f32 and rounds its outputs,
+    the reference rounds inside; each gradient within 2e-2 of its leaf's
+    largest magnitude, in the input's dtype."""
+    from repro.models.ssd import ssd_chunked
+    x, dt, A, B, C, st, dy, dfin = _ssd_inputs(16, seed=12)
+    low = lambda a: jnp.asarray(a, jnp.bfloat16)
+    args = [low(x), dt, A, low(B), low(C), low(st)]
+    _, vjp = jax.vjp(lambda *a: ssd_chunked(*a[:5], 8, a[5]), *args)
+    want = vjp((low(dy), low(dfin)))
+    ts = [torch.tensor(np.asarray(a, np.float32), dtype=d, requires_grad=True)
+          for a, d in zip(args, (torch.bfloat16, torch.float32, torch.float32,
+                                 torch.bfloat16, torch.bfloat16, torch.bfloat16))]
+    y, fin = ssd_ops.ssd_scan(*ts[:5], 8, ts[5])
+    torch.autograd.backward([y, fin], [torch.tensor(dy, dtype=torch.bfloat16),
+                                       torch.tensor(dfin, dtype=torch.bfloat16)])
+    for name, t, w in zip(("x", "dt", "A", "B", "C", "initial_state"), ts, want):
+        assert t.grad.dtype == t.dtype
+        _leaf_close(t.grad, np.asarray(w, np.float32), 2e-2, name)
+
+
+def test_moe_and_ssd_ops_route_through_their_function_only_with_grad():
+    """With an input that requires grad the two ops return their Function's
+    node on the CPU (the backward the card runs); under ``no_grad`` or with
+    no such input they return the plain forward, equal bit for bit and with
+    no node.  A gradient needs ``s`` divisible by the chunk."""
+    rng = np.random.default_rng(13)
+    x = torch.from_numpy(rng.standard_normal((2, 5, 16)).astype(np.float32))
+    ws = [torch.from_numpy(0.2 * rng.standard_normal(sh).astype(np.float32))
+          for sh in ((2, 16, 8), (2, 16, 8), (2, 8, 16))]
+    plain = moe_ops.moe_gmm_ref(x, *ws)
+    got = moe_ops.moe_gmm(x, *ws)
+    assert got.grad_fn is None and torch.equal(got, plain)
+    wg = ws[0].clone().requires_grad_(True)
     with torch.no_grad():
-        no_grad_on_card("moe_gmm", w)
-    no_grad_on_card("ssd_scan", torch.zeros(2))
-    rng = np.random.default_rng(4)
-    x = torch.from_numpy(rng.standard_normal((2, 3, 64)).astype(np.float32))
-    wg, wu = (torch.from_numpy(0.1 * rng.standard_normal((2, 64, 32)).astype(np.float32))
-              .requires_grad_(True) for _ in range(2))
-    wd = torch.from_numpy(0.1 * rng.standard_normal((2, 32, 64)).astype(np.float32))
-    moe_ops.moe_gmm(x, wg, wu, wd).sum().backward()
-    assert wg.grad is not None and float(wg.grad.abs().sum()) > 0
+        got = moe_ops.moe_gmm(x, wg, *ws[1:])
+    assert got.grad_fn is None and torch.equal(got, plain)
+    got = moe_ops.moe_gmm(x, wg, *ws[1:])
+    assert type(got.grad_fn).__name__ == "_MoEGMMBackward" and torch.equal(got, plain)
+    got.sum().backward()
+    assert float(wg.grad.abs().sum()) > 0
+
+    xs, dt, A, B, C, st, _, _ = (torch.from_numpy(a) for a in _ssd_inputs(8))
+    plain = ssd_ops.ssd_scan_ref(xs, dt, A, B, C, 4, st)
+    out = ssd_ops.ssd_scan(xs, dt, A, B, C, 4, st)
+    assert all(o.grad_fn is None for o in out)
+    assert all(torch.equal(a, b) for a, b in zip(out, plain))
+    At = A.clone().requires_grad_(True)
+    with torch.inference_mode():
+        assert ssd_ops.ssd_scan(xs, dt, At, B, C, 4, st)[0].grad_fn is None
+    y, fin = ssd_ops.ssd_scan(xs, dt, At, B, C, 4, st)
+    assert type(y.grad_fn).__name__ == "_SSDScanBackward"
+    assert torch.equal(y, plain[0]) and torch.equal(fin, plain[1])
+    with pytest.raises(ValueError, match="divisible by chunk"):
+        ssd_ops.ssd_scan(xs, dt, At, B, C, 3, st)
 
 
 # --------------------------------------------------------------------------- #
 # the whole model: loss_fn and every gradient
 # --------------------------------------------------------------------------- #
 ARCHS = ["qwen2-1.5b", "chameleon-34b", "gemma2-9b", "minicpm3-4b", "whisper-tiny",
-         "mixtral-8x7b", "mamba2-1.3b"]
+         "mixtral-8x7b", "mamba2-1.3b", "zamba2-7b"]
 
 
 def _pair(arch):
@@ -180,6 +319,20 @@ def _pair(arch):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_loss_and_every_gradient_match_jax(arch):
+    _check_loss_and_every_gradient(arch)
+
+
+def test_mixtral_dispatch_loss_and_every_gradient_match_jax():
+    """Reduced mixtral under the capacity dispatch on both sides (the
+    packed buffer through ``index_add_`` into the op's Function, the
+    reference's scatter einsums)."""
+    from repro.models import flags as jflags
+    from repro_torch.models import flags as tflags
+    with jflags.scoped(moe_impl="dispatch"), tflags.scoped(moe_impl="dispatch"):
+        _check_loss_and_every_gradient("mixtral-8x7b")
+
+
+def _check_loss_and_every_gradient(arch):
     jcfg, tcfg, params, model = _pair(arch)
     rng = np.random.default_rng(6)
     B, S = 2, 12

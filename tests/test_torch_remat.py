@@ -6,9 +6,9 @@ its largest magnitude), and the port's "full" and "dots" gradients equal
 its "none" ones to f32 rounding, for the dense, local/global pair, hybrid,
 ssm and encoder-decoder families.  The reference's remat changes what it
 keeps, not what it computes, so its gradients are taken once per family,
-under "none".  The recompute is counted through the RMSNorm and
-flash-attention forwards (the launches the card's smoke test gates), and
-serving never reaches ``torch.utils.checkpoint``."""
+under "none".  The recompute is counted through the RMSNorm,
+flash-attention, ``moe_gmm`` and SSD-scan forwards (the launches the card's
+smoke test gates), and serving never reaches ``torch.utils.checkpoint``."""
 import dataclasses
 import functools
 
@@ -23,7 +23,9 @@ from repro.models import lm as jlm
 from repro.models import zoo as jzoo
 from repro_torch.configs import get_config as tget_config
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.moe_gmm import ops as moe_ops
 from repro_torch.kernels.rmsnorm import ops as rms_ops
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models import flags as tflags
 from repro_torch.models import lm as tlm
 from repro_torch.models import zoo as tzoo
@@ -97,16 +99,17 @@ def test_gradients_match_jax_under_the_same_flag(arch, remat):
             assert float((g - base[name]).abs().max()) <= 1e-6 * scale, (name, remat)
 
 
-def _count_forwards(monkeypatch):
-    counts = {"rmsnorm": 0, "flash_attention": 0}
+def _count_forwards(monkeypatch, ops=None):
+    ops = {"rmsnorm": rms_ops, "flash_attention": fa_ops} if ops is None else ops
+    counts = {name: 0 for name in ops}
 
     def counted(name, fn):
         def wrapper(*a, **kw):
             counts[name] += 1
             return fn(*a, **kw)
         return wrapper
-    monkeypatch.setattr(rms_ops, "_forward", counted("rmsnorm", rms_ops._forward))
-    monkeypatch.setattr(fa_ops, "_forward", counted("flash_attention", fa_ops._forward))
+    for name, mod in ops.items():
+        monkeypatch.setattr(mod, "_forward", counted(name, mod._forward))
     return counts
 
 
@@ -131,6 +134,41 @@ def test_recompute_runs_each_layer_forward_again(remat, monkeypatch):
     again = 0 if remat == "none" else 1
     assert counts == {"rmsnorm": (2 + 2 * again) * L + 1,
                       "flash_attention": (1 + again) * L}
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "mamba2-1.3b", "zamba2-7b"])
+def test_recompute_runs_the_moe_and_scan_forwards_again(arch, monkeypatch):
+    """The moe, ssm and hybrid families under "full": each remat unit's
+    forward runs again in the backward, the ``moe_gmm`` and SSD-scan
+    Functions' forwards with it, so a microbatch runs every kernel of a
+    unit twice and the final norm once.  With M Mamba layers, G shared
+    blocks (zamba2's groups) and L decoder layers: RMSNorm 2·(2M + 2G + 2L)
+    + 1, flash attention 2·(G + L), ``moe_gmm`` 2·L (mixtral, either MoE
+    implementation), the SSD scan 2·M.  These are the counts the card's
+    smoke test gates on those launches, per microbatch."""
+    tcfg = dataclasses.replace(tget_config(arch).reduced(), dtype="float32")
+    model = tlm.init_params(tcfg, torch.Generator().manual_seed(0), device="cpu")
+    for p in model.parameters():
+        p.requires_grad_(True)
+    batch = {k: torch.randint(0, tcfg.vocab_size, (2, 16)) for k in ("tokens", "labels")}
+    counts = _count_forwards(monkeypatch, {"rmsnorm": rms_ops, "flash_attention": fa_ops,
+                                           "moe_gmm": moe_ops, "ssd_scan": ssd_ops})
+    if tcfg.family == "hybrid":
+        G, per, tail = tlm._hybrid_shape(tcfg)
+        M, L = G * per + tail, 0
+    else:
+        G, M, L = 0, (tcfg.n_layers if tcfg.family == "ssm" else 0), \
+            (tcfg.n_layers if tcfg.family == "moe" else 0)
+    want = {"rmsnorm": 2 * (2 * M + 2 * G + 2 * L) + 1, "flash_attention": 2 * (G + L),
+            "moe_gmm": 2 * L, "ssd_scan": 2 * M}
+    impls = ("dense", "dispatch") if tcfg.family == "moe" else ("dense",)
+    for impl in impls:
+        for k in counts:
+            counts[k] = 0
+        with tflags.scoped(remat="full", moe_impl=impl):
+            loss = tzoo.loss_fn(model, tcfg, batch)
+            torch.autograd.grad(loss, list(model.parameters()))
+        assert counts == want, (impl, counts, want)
 
 
 def test_serving_never_reaches_checkpoint(monkeypatch):

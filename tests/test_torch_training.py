@@ -271,6 +271,44 @@ def test_train_matches_jax_over_six_steps(jax_run, monkeypatch):
                                    atol=2 * _lr_sum(STEPS), rtol=0)
 
 
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "mamba2-1.3b", "zamba2-7b"])
+def test_train_matches_jax_over_three_steps_for_the_moe_ssm_and_hybrid_families(
+        arch, tmp_path):
+    """Reduced mixtral (dense mix), mamba2 and zamba2 in f32 trained for 3
+    steps of 2 microbatches by both loops, each on its own threefry batches
+    (equal bit for bit: no ``batch_at`` monkeypatch), from the same weights:
+    losses within 1e-4; each leaf's update over the 3 steps, p − p0, within
+    1e-3 of the reference's in norm (‖Δp − Δp_ref‖ ≤ 1e-3·‖Δp_ref‖; a wrong
+    third update alone would leave a gap near a third of it) and of the same
+    sign at 99% of its entries or more.  On the card these steps run
+    ``moe_gmm`` and the SSD scan through their autograd Functions, whose
+    backwards are the ops that run here."""
+    jcfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    tcfg = dataclasses.replace(tget_config(arch).reduced(), dtype="float32")
+    jd = jdata.DataConfig(vocab_size=jcfg.vocab_size, seq_len=16, global_batch=4)
+    td = tdata.DataConfig(vocab_size=tcfg.vocab_size, seq_len=16, global_batch=4)
+    steps = 3
+    params = jlm.init_params(jcfg, jax.random.PRNGKey(2))
+    p0 = tlm.named_from_jax(tcfg, jax.tree.map(np.asarray, params))
+    jrep = jtrainer.train(jcfg, jtrainer.TrainConfig(
+        steps=steps, microbatches=2, ckpt_every=steps, ckpt_dir=str(tmp_path),
+        opt=jopt.AdamWConfig(**OPT)), jd, params=params)
+    model = tlm.params_from_jax(tcfg, jax.tree.map(np.asarray, params), device="cpu")
+    rep = ttrainer.train(tcfg, ttrainer.TrainConfig(
+        steps=steps, microbatches=2, opt=topt.AdamWConfig(**OPT)), td, params=model,
+        device="cpu")
+    assert rep.steps_done == steps and rep.skipped_nan == 0
+    np.testing.assert_allclose(rep.losses, jrep.losses, atol=LOSS_TOL, rtol=0)
+    (jp, _), _, _ = jck.restore(tmp_path, (params, jopt.init_state(params)), step=steps)
+    want = tlm.named_from_jax(tcfg, jax.tree.map(np.asarray, jp))
+    got = dict(model.named_parameters())
+    assert set(got) == set(want)
+    for k, p in got.items():
+        du, du_ref = p.detach().numpy() - p0[k], want[k] - p0[k]
+        assert np.linalg.norm(du - du_ref) <= 1e-3 * np.linalg.norm(du_ref), k
+        assert float(np.mean(np.sign(du) == np.sign(du_ref))) >= 0.99, k
+
+
 def test_port_resumes_a_jax_checkpoint(jax_run, monkeypatch, tmp_path):
     jreport, jdir = jax_run
     shutil.copytree(jdir / "step_3", tmp_path / "step_3")
@@ -552,3 +590,24 @@ def test_train_cli_runs_without_the_reference(tmp_path):
     assert "nan-skips 0" in outs[0] and "resumed=None" in outs[0]
     assert "done: 5 steps" in outs[1] and "resumed=3" in outs[1]
     assert tck.latest_step(tmp_path) == 5
+
+
+def test_train_cli_trains_mamba2_without_the_reference():
+    """``launch.train --arch mamba2-1.3b --device cpu`` (the reduced ssm
+    family, through the SSD scan's Function) in a process that would fail
+    on any import of ``repro`` or ``jax``."""
+    guard = ("import sys, runpy\n"
+             "class Block:\n"
+             "    def find_spec(self, name, path=None, target=None):\n"
+             "        if name.split('.')[0] in ('repro', 'jax'):\n"
+             "            raise ImportError('blocked: ' + name)\n"
+             "sys.meta_path.insert(0, Block())\n"
+             "sys.argv = ['train'] + sys.argv[1:]\n"
+             "runpy.run_module('repro_torch.launch.train', run_name='__main__')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", guard, "--arch", "mamba2-1.3b",
+                          "--device", "cpu", "--steps", "3", "--seq-len", "32"],
+                         capture_output=True, text=True, cwd=ROOT, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "step     0 loss" in out.stdout and "done: 3 steps" in out.stdout
+    assert "nan-skips 0" in out.stdout
