@@ -8,7 +8,7 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
   2. build: the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
      source, in parallel; ptxas registers, shared memory and spills);
   3. each kernel against its plain PyTorch version at the main paths'
-     full-width shapes and phase 4n's shard shapes (bf16 to 2e-2, f32 to
+     full-width shapes and phases 4n's and 4q's shard shapes (bf16 to 2e-2, f32 to
      2e-5; ``moe_gmm`` at mixtral-8x7b's and mixtral-8x22b's expert
      widths; flash attention also on
      page pools through a scattered page table; decode over group sizes
@@ -114,6 +114,16 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
          says, no launch, no allocation), then 4o's cell on one device,
          whose argument bytes plus working copy equal exactly the bytes 4o's
          trainer held on the card;
+     4q. sharded replicas of the other families on logical devices of the
+         card, 8 slots each: mamba2-1.3b (4 of 48 layers) at tp 2, tp 4,
+         dp 2 × tp 2 and pp 2 × tp 2, then tp 2 → tp 4 with 8 requests in
+         flight; zamba2-7b (6 of 81 slots), minicpm3-4b (2 of 62, paged
+         and contiguous) and gemma2-9b (one pair) at tp 2 and tp 4;
+         whisper-tiny whole at tp 2 and tp 4 (``fsdp``); qwen2-1.5b (2 of
+         28, paged) at tp 8 (``fsdp``); tokens held to the plain engine's
+         or a judged bf16 tie, exact launches of the admission and of
+         each decode dispatch, no page leaks, bytes per logical device
+         beside the decision's, host wall and device busy per dispatch;
   5. the port on the card (bf16, kernels) against the port on the CPU (f32,
      plain versions) for one prefill chunk and 8 decode steps at full
      width: qwen2-1.5b, mamba2-1.3b and minicpm3-4b at 2 layers,
@@ -138,6 +148,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -819,12 +830,23 @@ def check_shard_kernels(torch) -> dict:
     and prefill flash attention on one tp-2 shard (H 6, Hkv 1, D 128) and on
     one tp-4 shard at its KV-head fallback (3 query heads against one KV
     head of the replicated 2-head pool, read through the row table of the
-    page-size-1 view); and the grouped SwiGLU of one EP shard of
+    page-size-1 view); the grouped SwiGLU of one EP shard of
     mixtral-8x7b (E 4 of 8, D 4096, F 14336) at C 8 (decode, 8 lanes) and
-    C 64 (one prefill chunk), x shared by the experts."""
+    C 64 (one prefill chunk), x shared by the experts; and phase 4q's: the
+    SSD scan on one shard's heads of mamba2-1.3b at tp 2 and 4 (h 32 and
+    16, p 64, n 128) and of zamba2-7b (h 56 and 28, n 64), one lane's
+    64-token chunk with a state; the contiguous decode (8 lanes) and flash
+    attention (a 64-token chunk at kv_len 512) on one tp-2 shard of
+    gemma2-9b (H 8, Hkv 4, D 256, softcap 50) and of zamba2-7b's shared
+    block (H 16, Hkv 16, D 112); whisper-tiny's cross-attention (the paged
+    decode and non-causal flash attention through the row table of a
+    width-3 view of ``xk``/``xv`` for a tp-2 shard's heads 3..5, and of the
+    width-6 view for an fsdp device's 2 lanes; 1500 frames, D 64) against
+    the plain versions on those heads' contiguous slice."""
     from repro_torch.kernels.flash_attention import kernel as fa_k, ref as fa_r
     from repro_torch.kernels.flash_decode import kernel as fd_k, ops as fd_o, ref as fd_r
     from repro_torch.kernels.moe_gmm import kernel as moe_k, ref as moe_r
+    from repro_torch.kernels.ssd_scan import kernel as ssd_k, ref as ssd_r
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(4321)
@@ -902,6 +924,77 @@ def check_shard_kernels(torch) -> dict:
                lambda: moe_k.moe_gmm(x, *w), lambda: moe_r.moe_gmm_ref(x, *w), "moe_gmm",
                C * DM * 2 + 3 * E * DM * FF * 2 + E * C * DM * 2, 2.0 * 3 * E * C * DM * FF)
     del w
+    # phase 4q: one shard's heads of the SSD scan, one lane's 64-token chunk
+    b, S, P = 1, 64, 64
+    for h, n, what in ((32, 128, "mamba2-1.3b, one tp-2 shard"),
+                       (16, 128, "mamba2-1.3b, one tp-4 shard"),
+                       (56, 64, "zamba2-7b, one tp-2 shard"),
+                       (28, 64, "zamba2-7b, one tp-4 shard")):
+        u = torch.rand((b, S, h), device=dev, generator=gen)
+        dtv = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
+        A = -torch.arange(1, h + 1, device=dev, dtype=torch.float32)
+        args = (randn(b, S, h, P) * 0.5, dtv, A, randn(b, S, 1, n) * 0.3,
+                randn(b, S, 1, n) * 0.3, randn(b, h, P, n) * 0.3)
+        half = (S + 1) / 2
+        record(f"ssd_scan h{h} n{n}", f"ssd_scan b={b} s={S} h={h} p={P} n={n} with a "
+               f"state ({what})",
+               lambda: torch.cat([t.flatten() for t in ssd_k.ssd_scan(*args)]),
+               lambda: torch.cat([t.flatten() for t in ssd_r.ssd_scan_ref(*args[:5], S,
+                                                                          args[5])]),
+               "ssd_scan",
+               2 * b * S * h * P * 2 + 2 * b * S * n * 2 + b * S * h * 4 + h * 4
+               + 2 * b * h * P * n * 2,
+               b * S * (2 * half * n + h * (2 * half * P + 4 * P * n)))
+    # phase 4q: the contiguous decode and a prefill chunk on one tp-2 shard
+    Sbuf = 512
+    for H, Hkv, D, cap, what in ((8, 4, 256, 50.0, "gemma2-9b, one tp-2 shard, softcap 50"),
+                                 (16, 16, 112, None, "zamba2-7b's shared block, one tp-2 "
+                                                     "shard")):
+        K, V = randn(B, Sbuf, Hkv, D), randn(B, Sbuf, Hkv, D)
+        q = randn(B, H, D)
+        record(f"flash_decode H{H} D{D}", f"flash_decode B={B} H={H} Hkv={Hkv} D={D} "
+               f"kv_len={kl.tolist()} ({what})",
+               lambda: fd_k.flash_decode(q, K, V, kl, cap),
+               lambda: fd_r.flash_decode_ref(q, K, V, kl, cap), "decode",
+               2 * keys * Hkv * D * 2 + 2 * B * H * D * 2, 4.0 * keys * H * D)
+        qc, Kc, Vc = randn(1, 64, H, D), K[:1].contiguous(), V[:1].contiguous()
+        record(f"flash_attention H{H} D{D}", f"flash_attention one lane, a 64-token chunk "
+               f"at kv_len 512, H={H} Hkv={Hkv} D={D} ({what})",
+               lambda: fa_k.flash_attention(qc, Kc, Vc, True, None, cap, klp),
+               lambda: fa_r.flash_attention_ref(qc, Kc, Vc, True, None, cap, klp),
+               "flash_attention", 2 * 512 * Hkv * D * 2 + 2 * 64 * H * D * 2,
+               4.0 * pkeys * H * D)
+        del K, V
+    # phase 4q: whisper-tiny's cross-attention over a contiguous xk/xv (1500
+    # frames, Hkv 6, D 64) read through the row table of its view of w KV
+    # heads a row: one tp-2 shard (w 3, heads 3..5, 8 lanes) and one device
+    # of tp 4 in fsdp mode (w 6, its 2 lanes of 8), held against the plain
+    # decode and flash attention on those heads' contiguous slice
+    F, HX, DX = 1500, 6, 64
+    xk, xv = randn(B, F, HX, DX), randn(B, F, HX, DX)
+    for w, g, bx, what in ((3, 1, B, "one tp-2 shard"), (6, 0, 2, "one fsdp device of tp 4")):
+        rows_x = fd_o.contiguous_kv_head_rows(bx, F, HX // w, g, dev)
+        kview, vview = fd_o.head_view(xk[:bx], w), fd_o.head_view(xv[:bx], w)
+        kg, vg = (t[:bx, :, g * w:(g + 1) * w].contiguous() for t in (xk, xv))
+        fl = torch.full((bx,), F, device=dev, dtype=torch.int32)
+        qx, qxc = randn(bx, w, DX), randn(1, 64, w, DX)
+        record(f"paged_flash_decode whisper w{w}", f"paged_flash_decode B={bx} H={w} "
+               f"against KV heads {g * w}..{(g + 1) * w - 1} of xk/xv (F={F}, Hkv={HX}, "
+               f"D={DX}) through the row table of the width-{w} page-size-1 view "
+               f"(whisper-tiny cross-attention, {what})",
+               lambda: fd_k.paged_flash_decode(qx, kview, vview, rows_x, fl),
+               lambda: fd_r.flash_decode_ref(qx, kg, vg, fl), "decode",
+               2 * bx * F * w * DX * 2 + 2 * bx * w * DX * 2, 4.0 * bx * F * w * DX)
+        record(f"flash_attention whisper w{w}", f"flash_attention causal=False, one lane, "
+               f"a 64-token chunk at kv_len {F}, H={w} against KV heads "
+               f"{g * w}..{(g + 1) * w - 1} through the same row table (whisper-tiny "
+               f"cross-attention, {what})",
+               lambda: fa_k.flash_attention(qxc, kview, vview, False, None, None, fl[:1],
+                                            rows_x[:1]),
+               lambda: fa_r.flash_attention_ref(qxc, kg[:1], vg[:1], False, None, None, fl[:1]),
+               "flash_attention", 2 * F * w * DX * 2 + 2 * 64 * w * DX * 2,
+               4.0 * 64 * F * w * DX)
+    del xk, xv
     torch.cuda.empty_cache()
     return out
 
@@ -1972,6 +2065,30 @@ def judge_tie(torch, truth, seq, rid: int, tok: int, table: dict, what: str) -> 
     need(gap <= tol + tol * abs(top), f"{what}: token {tok} is {gap:.4e} below the f32 "
          f"maximum {top:.4f} under the run's own routing, beyond a bf16 tie")
     return gap
+
+
+def hold_tokens(torch, truth, prompts: dict, got: dict, want: dict, tag: str,
+                judged: dict) -> dict:
+    """Tokens ``got`` equal ``want``'s or differ first at a bf16 tie judged
+    by the f32 twin ``truth`` (phase 4d's rule; a tie already in ``judged``
+    is not replayed again)."""
+    equal, ties = 0, []
+    for rid in sorted(want):
+        a, b = got[rid], want[rid]
+        if a == b:
+            equal += 1
+            continue
+        i = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+        seq = prompts[rid] + b[:i]
+        for t in (a[i], b[i]):
+            key = (tuple(seq), t)
+            if key not in judged:
+                judged[key] = judge_tie(torch, truth, seq, rid, t, {}, f"{tag} request {rid}")
+        gap = max(judged[tuple(seq), t] for t in (a[i], b[i]))
+        ties.append(gap)
+        print(f"{tag}: request {rid} first differs at token {i}: a bf16 tie "
+              f"({gap:.4e} below the f32 twin's maximum)")
+    return dict(equal=equal, ties=len(ties))
 
 
 def route_flips(a: dict, b: dict, rid: int) -> tuple:
@@ -3337,28 +3454,8 @@ def serve_sharded(torch, card: str) -> dict:
                                                        for k, v in win.items()})
 
     judged = {}
-
-    def hold(tag: str, got: dict, want: dict) -> dict:
-        """Tokens equal ``want``'s or differ first at a judged bf16 tie (a
-        tie another run already judged is not replayed again)."""
-        equal, ties = 0, []
-        for rid in sorted(want):
-            a, b = got[rid], want[rid]
-            if a == b:
-                equal += 1
-                continue
-            i = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
-            seq = prompts[rid] + b[:i]
-            for t in (a[i], b[i]):
-                key = (tuple(seq), t)
-                if key not in judged:
-                    judged[key] = judge_tie(torch, truth, seq, rid, t, {},
-                                            f"{tag} request {rid}")
-            gap = max(judged[tuple(seq), t] for t in (a[i], b[i]))
-            ties.append(gap)
-            print(f"[sharded] {tag}: request {rid} first differs at token {i}: a bf16 tie "
-                  f"({gap:.4e} below the f32 twin's maximum)")
-        return dict(equal=equal, ties=len(ties))
+    hold = lambda tag, got, want: hold_tokens(torch, truth, prompts, got, want,
+                                              f"[sharded] {tag}", judged)
 
     alloc = SubmeshAllocator(devs)
     pipe = lambda pp, shape: PipelinedEngine(
@@ -3529,6 +3626,251 @@ def serve_sharded(torch, card: str) -> dict:
     del eng, m32
     torch.cuda.empty_cache()
     need(alloc.free_devices == 4, "a submesh leaked")
+    out["launches"] = total
+    return out
+
+
+LAUNCH_KEYS = ("paged_flash_decode", "flash_attention", "rmsnorm", "flash_decode",
+               "moe_gmm", "ssd_scan")
+
+
+def shard_launches(cfg, st, width: int, paged: bool) -> dict:
+    """Kernel launches of one (micro-)chunk of ``width`` tokens through
+    ``st`` (a :class:`ShardGroup`, or a plain engine's stand-in) on one of
+    its rows (each of its shards), counted over the model's
+    :func:`~repro_torch.models.lm.blocks` as the step runs them: RMSNorm
+    twice a block (ln and the Mamba-2 gated norm, or ln1 and ln2), once
+    more for a cross-attention's ln_x and for the final norm; the SSD scan
+    per Mamba-2 layer for a chunk (the S = 1 step runs no kernel); flash
+    attention per GQA or cross-attention for a chunk, else the decode
+    (contiguous, or paged on a page pool; a shard's cross-attention through
+    the row table of its KV heads, the plain step's contiguous)."""
+    from repro_torch.models import lm
+    from repro_torch.serving.sharded import ShardGroup
+    bl, tp = lm.blocks(cfg, st.n_layers), st.tp
+    scans = sum(b.kind == "mamba" for b in bl)
+    attn = sum(b.kind == "attn" for b in bl)
+    cross = sum(b.cross for b in bl)
+    out = dict.fromkeys(LAUNCH_KEYS, 0)
+    out["rmsnorm"] = (2 * len(bl) + cross + int(st.last)) * tp
+    if width > 1:
+        out["ssd_scan"] = scans * tp
+        out["flash_attention"] = (attn + cross) * tp
+    else:
+        out["paged_flash_decode" if paged else "flash_decode"] += attn * tp
+        out["paged_flash_decode" if isinstance(st, ShardGroup) else "flash_decode"] += cross * tp
+    return out
+
+
+def expected_launches(cfg, eng, prompts: dict) -> tuple:
+    """(admission, one decode dispatch): the launches of admitting
+    ``prompts`` on the engine's 8 slots (every prefill chunk, in ``pp``
+    micro-chunks through the stages, on the row that holds its lane, then
+    a decode dispatch) and of a decode dispatch with every lane active on
+    every row."""
+    from types import SimpleNamespace
+    # a plain engine runs as one stage of one shard
+    stages = getattr(eng, "stages", None) or [SimpleNamespace(
+        n_layers=cfg.n_layers, tp=1, dp=1, lane_split=False, last=True, kv_split=True)]
+    pp = len(stages)
+
+    def dispatch(width: int, prefill: bool) -> dict:
+        spans = pp if pp > 1 and width >= pp and width % pp == 0 else 1
+        out = dict.fromkeys(LAUNCH_KEYS, 0)
+        for st in stages:
+            need(st.kv_split, f"{cfg.name}: a KV-head fallback in phase 4q")
+            rows = 1 if prefill and st.lane_split else st.dp
+            for k, v in shard_launches(cfg, st, width // spans, eng.paged).items():
+                out[k] += v * rows * spans
+        return out
+
+    # the engine's chunks: one token at a time past a contiguous ring
+    limit = None if eng.paged else eng._rolling_limit
+    decode = dispatch(1, False)
+    adm = dict(decode)
+    for p in prompts.values():
+        off = 0
+        for c in eng._chunk_sizes:
+            while len(p) - off >= c and not (limit and c > 1 and off + c > limit):
+                off += c
+                for k, v in dispatch(c, True).items():
+                    adm[k] += v
+    return adm, decode
+
+
+def serve_sharded_families(torch, card: str) -> dict:
+    """Phase 4q: sharded replicas of the ssm, hybrid, MLA, local/global-pair
+    and encoder-decoder families, and the reference's ``fsdp`` mode, on 4
+    logical devices of the card (8 for tp 8), at full width with depth
+    cut, seeded bf16 weights, each on 8 slots serving 8 requests of 32–96
+    tokens with 8 new: mamba2-1.3b (4 of 48 layers, contiguous) at tp 2,
+    tp 4, dp 2 × tp 2 and pp 2 × tp 2; zamba2-7b at 6 of 81 slots (one
+    group of 5 Mamba-2 layers and the shared block) at tp 2 and tp 4;
+    minicpm3-4b (2 of 62 layers) paged and contiguous at tp 2 and tp 4;
+    gemma2-9b (one pair) at tp 2 and tp 4; whisper-tiny whole at tp 2
+    (``tp`` mode) and tp 4 (``fsdp``: 6 heads); qwen2-1.5b (2 of 28 layers,
+    paged) at tp 8 (``fsdp``: 12 heads), one lane a device; then a mamba2
+    tp 2 → tp 4 migration with 8 requests in flight.  Each run's tokens
+    equal the plain engine's on the card or differ first at a bf16 tie
+    judged by the f32 twin (phase 4d's rule); full budgets, no leaked page;
+    the launches of the admission and of each profiled decode dispatch
+    exactly as :func:`expected_launches` counts them; the bytes each
+    logical device holds beside the decision's (its weights equal), the
+    host wall per decode dispatch and the device busy."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.plan import default_stage_cuts
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch.mesh import logical_devices
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import Engine, Request
+    from repro_torch.serving.sharded import PipelinedEngine, ShardedEngine, SubmeshAllocator
+
+    MAX_NEW = 8
+    KW = dict(n_slots=8, max_seq_len=128, page_size=16)
+    alloc = SubmeshAllocator(logical_devices(8))
+    total = dict.fromkeys(LAUNCH_KEYS, 0)
+    out = {}
+
+    def add(c):
+        for k, v in c.items():
+            total[k] += v
+
+    def serve(eng, cfg, prompts, tag):
+        adm_want, dec_want = expected_launches(cfg, eng, prompts)
+        zero_launches()
+        for rid, p in prompts.items():
+            eng.submit(Request(rid=rid, prompt=list(p), max_new_tokens=MAX_NEW))
+        eng.step()                                  # 8 admissions + one decode
+        need(len(eng.active) == 8, f"{tag}: {len(eng.active)} lanes active after admission")
+        adm = read_launches()
+        add(adm)
+        need(adm == adm_want, f"{tag}: admission launches {adm}, want {adm_want}")
+        zero_launches()
+        wall, n_disp, pwall, busy, _ = profile_steps(torch, eng, 2, host_ops=False)
+        win = read_launches()
+        add(win)
+        per = {k: v / (2 * n_disp) for k, v in win.items()}
+        need(per == {k: float(v) for k, v in dec_want.items()},
+             f"{tag}: decode launches a dispatch {per}, want {dec_want}")
+        zero_launches()
+        eng.run_until_drained()
+        add(read_launches())
+        got = {st.request.rid: list(st.generated) for st in eng.finished}
+        need(sorted(got) == sorted(prompts) and all(len(g) == MAX_NEW for g in got.values()),
+             f"{tag}: finished {sorted(got)} with budgets {[len(g) for g in got.values()]}")
+        if eng.paged:
+            leaked = eng.release_all_pages()
+            need(leaked == 0, f"{tag}: {leaked} pages leaked")
+        row = dict(decode_ms_per_dispatch=wall * 1e3 / n_disp,
+                   device_busy_ms=busy * 1e3 / n_disp, idle=1 - busy / pwall,
+                   decode_launches_per_dispatch={k: v for k, v in per.items() if v})
+        return got, row
+
+    def layout(eng, model, cfg) -> dict:
+        """Bytes each logical device holds (weights as placed, its caches)
+        beside the decision's (its parameter specs, and the reference's
+        cache specs over the engine's whole cache)."""
+        grp = eng.stages[0]
+        per = eng.bytes_per_device()
+        cache = {grp.ids[r][s]: sum(t.numel() * t.element_size() for _, t in lm.leaves(c))
+                 for r, row in enumerate(grp.caches) for s, c in enumerate(row)}
+        w_dec = sh.shard_bytes(eng.mesh, sh.jax_layout(model, meta=True),
+                               eng.decision.param_specs)
+        meta = grp._meta_cache(eng.page_pool.n_pages if eng.paged else 0)
+        spec_fn = sh.paged_cache_pspecs if eng.paged else sh.cache_pspecs
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            c_dec = sh.shard_bytes(eng.mesh, meta, spec_fn(cfg, eng.sharding_policy, meta))
+        weights = {i: per[i] - cache[i] for i in per}
+        need(set(weights.values()) == {w_dec},
+             f"{cfg.name}: weights per device {sorted(set(weights.values()))} != the "
+             f"decision's {w_dec}")
+        return dict(weights=weights[min(weights)], cache=sorted(set(cache.values())),
+                    decision_weights=w_dec, decision_cache=c_dec)
+
+    def family(arch: str, n_layers, paged: bool, runs, seed: int):
+        cfg = get_config(arch)
+        if n_layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        model = lm.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
+        truth = f32_twin(torch, cfg, model)
+        rng = np.random.default_rng(seed)
+        prompts = {rid: random_prompt(rng, cfg.vocab_size, 32, 96) for rid in range(8)}
+        kw = dict(KW, paged=paged)
+        want, _ = serve(Engine(cfg, model, device="cuda", **kw), cfg, prompts,
+                        f"{arch} plain")
+        judged, rows = {}, {}
+        for tag, shape in runs:
+            if shape == "pp":
+                eng = PipelinedEngine(cfg, model, default_stage_cuts(cfg.n_layers, 2),
+                                      stage_meshes=alloc.alloc_stages(2, (1, 2)),
+                                      allocator=alloc, **kw)
+            else:
+                eng = ShardedEngine(cfg, model, alloc.alloc(shape), allocator=alloc, **kw)
+            label = f"{arch} {'paged' if paged else 'contiguous'} {tag}"
+            got, row = serve(eng, cfg, prompts, label)
+            row.update(hold_tokens(torch, truth, prompts, got, want, f"[families] {label}",
+                                   judged))
+            row["mode"] = eng.stages[0].policy.mode
+            if isinstance(eng, ShardedEngine):
+                row["bytes"] = layout(eng, model, cfg)
+            b = row.get("bytes")
+            btxt = ("" if b is None else
+                    f"; bytes a logical device: weights {b['weights'] / 2**20:.1f} MiB "
+                    f"(decision {b['decision_weights'] / 2**20:.1f}), cache "
+                    f"{'/'.join(f'{c / 2**20:.2f}' for c in b['cache'])} MiB (the reference's "
+                    f"cache specs {b['decision_cache'] / 2**20:.2f})")
+            print(f"[families] {label} ({row['mode']} mode): {row['equal']} of 8 with the "
+                  f"plain engine's tokens, {row['ties']} judged ties; decode "
+                  f"{row['decode_ms_per_dispatch']:.2f} ms a dispatch (host wall), device busy "
+                  f"{row['device_busy_ms']:.2f} ms (idle {100 * row['idle']:.1f}%); launches "
+                  f"a decode dispatch {row['decode_launches_per_dispatch']}{btxt} [{card}]")
+            eng.release_devices()
+            rows[tag] = row
+            del eng
+        out[f"{arch} {'paged' if paged else 'contiguous'}"] = rows
+        return cfg, model, truth, prompts, want
+
+    tp = lambda n: (f"tp {n}", (1, n))
+    cfg, model, truth, prompts, want = family(
+        "mamba2-1.3b", 4, False, [tp(2), tp(4), ("dp 2 x tp 2", (2, 2)),
+                                  ("pp 2 x tp 2", "pp")], 41)
+    # mamba2 tp 2 -> tp 4 with 8 requests in flight
+    zero_launches()
+    eng = ShardedEngine(cfg, model, alloc.alloc((1, 2)), allocator=alloc, **KW, paged=False)
+    for rid, p in prompts.items():
+        eng.submit(Request(rid=rid, prompt=list(p), max_new_tokens=MAX_NEW))
+    for _ in range(3):
+        eng.step()
+    exports = eng.export_active()
+    eng.release_devices()
+    eng = ShardedEngine(cfg, model, alloc.alloc((1, 4)), allocator=alloc, **KW, paged=False)
+    need(len(exports) == 8 and all(eng.install_active(e) for e in exports),
+         "mamba2 tp 2 -> tp 4: install refused")
+    eng.run_until_drained()
+    got = {st.request.rid: list(st.generated) for st in eng.finished}
+    need(sorted(got) == sorted(prompts) and all(len(g) == MAX_NEW for g in got.values()),
+         "mamba2 tp 2 -> tp 4: requests lost or cut short")
+    add(read_launches())
+    out["migration"] = hold_tokens(torch, truth, prompts, got, want,
+                                   "[families] mamba2 tp 2 -> tp 4", {})
+    print(f"[families] mamba2-1.3b tp 2 -> tp 4 with 8 requests in flight (3 steps in): "
+          f"{out['migration']['equal']} with the plain engine's tokens, "
+          f"{out['migration']['ties']} judged ties [{card}]")
+    eng.release_devices()
+    del eng, model, truth
+    family("zamba2-7b", 6, False, [tp(2), tp(4)], 42)
+    family("minicpm3-4b", 2, True, [tp(2), tp(4)], 43)
+    family("minicpm3-4b", 2, False, [tp(2), tp(4)], 43)
+    family("gemma2-9b", 2, False, [tp(2), tp(4)], 44)
+    family("whisper-tiny", None, False, [tp(2), ("tp 4 (fsdp)", (1, 4))], 45)
+    family("qwen2-1.5b", 2, True, [("tp 8 (fsdp)", (1, 8))], 46)
+    need(alloc.free_devices == 8, "a submesh leaked")
+    need(out["whisper-tiny contiguous"]["tp 4 (fsdp)"]["mode"] == "fsdp"
+         and out["qwen2-1.5b paged"]["tp 8 (fsdp)"]["mode"] == "fsdp"
+         and out["whisper-tiny contiguous"]["tp 2"]["mode"] == "tp", "4q: modes")
+    torch.cuda.empty_cache()
     out["launches"] = total
     return out
 
@@ -4297,6 +4639,7 @@ def main(argv=None) -> int:
     faults = timed("4l", serve_faults)
     autopoiesis = timed("4m", serve_autopoiesis)
     sharded = timed("4n", serve_sharded)
+    families = timed("4q", serve_sharded_families)
     training = timed("4o", train_on_card)
     dry = timed("4p", dryrun_cells, training)
     # whisper's main path adds its launches to rows 2-4: serving, forward
@@ -4310,19 +4653,22 @@ def main(argv=None) -> int:
     # and the training forwards of 4o to rows 2-3
     q_counts += [sharded["launches"], training["launches"]]
     # 4o's moe, ssm and hybrid families (each step's forwards and their
-    # recompute) to rows 2, 3, 5 and 6
+    # recompute) to rows 2, 3, 5 and 6, and 4q's sharded families to rows
+    # 1-4 and 6
     t_counts = [f["launches"] for f in training["families"].values()]
+    f_counts = [families["launches"]]
     launches = {"paged_flash_decode": counts["paged_flash_decode"]
-                + sum(c["paged_flash_decode"] for c in q_counts),
+                + sum(c["paged_flash_decode"] for c in q_counts + f_counts),
                 "flash_attention": counts["flash_attention"]
-                + sum(c["flash_attention"] for c in w_counts + q_counts + t_counts),
+                + sum(c["flash_attention"] for c in w_counts + q_counts + t_counts + f_counts),
                 "rmsnorm": counts["rmsnorm"]
-                + sum(c["rmsnorm"] for c in w_counts + q_counts + t_counts),
+                + sum(c["rmsnorm"] for c in w_counts + q_counts + t_counts + f_counts),
                 "flash_decode": contig_counts["flash_decode"]
-                + sum(c["flash_decode"] for c in w_counts),
+                + sum(c["flash_decode"] for c in w_counts + f_counts),
                 "moe_gmm": mixtral["dense"]["launches"]["moe_gmm"]
                 + sharded["launches"]["moe_gmm"] + sum(c["moe_gmm"] for c in t_counts),
-                "ssd_scan": ssm_counts["ssd_scan"] + sum(c["ssd_scan"] for c in t_counts)}
+                "ssd_scan": ssm_counts["ssd_scan"]
+                + sum(c["ssd_scan"] for c in t_counts + f_counts)}
     need(all(n > 0 for n in launches.values()), f"a kernel never launched: {launches}")
     # phase 5
     t5 = time.monotonic()
@@ -4372,6 +4718,7 @@ def main(argv=None) -> int:
                       "mixtral": mixtral, "registry": registry, "mla": mla, "ring": ring,
                       "gemma2": gemma2, "zamba2": zamba2, "whisper": whisper,
                       "faults": faults, "autopoiesis": autopoiesis, "sharded": sharded,
+                      "sharded_families": families,
                       "training": training, "train_vs_cpu": train_rel, "dryrun": dry,
                       "backward": rows["backward"],
                       "shard_kernels": rows["shard_kernels"],

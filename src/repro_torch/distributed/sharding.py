@@ -236,7 +236,7 @@ def jax_layout(model, meta: bool = False) -> Dict[str, Any]:
     dtypes: Dict[Tuple[str, ...], torch.dtype] = {}
     for name, p in model.named_parameters():
         parts = name.split(".")
-        depth = lm._STACKS.get(parts[0])
+        depth = lm.STACKS.get(parts[0])
         if depth is None:
             path, idx = tuple(parts), []
         else:

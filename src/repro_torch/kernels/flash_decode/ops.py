@@ -113,10 +113,13 @@ def sharded_paged_flash_decode(q: torch.Tensor, kp, vp, ptab: torch.Tensor,
     return torch.cat(outs, dim=1)
 
 
-def head_view(pool: torch.Tensor) -> torch.Tensor:
+def head_view(pool: torch.Tensor, width: int = 1) -> torch.Tensor:
     """A pool (P, page, Hkv, D) or a contiguous cache (B, S, Hkv, D) read
-    as (rows·Hkv, 1, 1, D): a page-size-1 pool of one KV head."""
-    return pool.view(-1, 1, 1, pool.shape[-1])
+    as (rows·Hkv/width, 1, width, D): a page-size-1 pool of ``width`` KV
+    heads, whose row ``r·Hkv/width + g`` holds heads ``[g·width,
+    (g+1)·width)`` of row r (the row tables below with ``hkv = Hkv/width``
+    and ``kv_head = g`` address it)."""
+    return pool.view(-1, 1, width, pool.shape[-1])
 
 
 def kv_head_rows(ptab: torch.Tensor, page: int, hkv: int, kv_head: int) -> torch.Tensor:

@@ -82,8 +82,8 @@ def linear(w: torch.Tensor, b: Optional[torch.Tensor], x: torch.Tensor) -> torch
 # --------------------------------------------------------------------------- #
 # attention
 # --------------------------------------------------------------------------- #
-def _attn_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window: Optional[int],
-               causal: bool = True) -> torch.Tensor:
+def attn_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window: Optional[int],
+              causal: bool = True) -> torch.Tensor:
     """(B, 1, Sq, Sk) boolean mask. q_pos: (B, Sq), k_pos: (B, Sk)."""
     diff = q_pos[:, :, None] - k_pos[:, None, :]
     mask = (diff >= 0) if causal else torch.ones_like(diff, dtype=torch.bool)
@@ -327,7 +327,7 @@ class MLA(nn.Module):
         self.wo = _weight((H * m.v_head_dim, d), dtype, device)
 
 
-def _mla_qkv(p: MLA, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
+def mla_qkv(p: MLA, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
     """Absorbed query ``q_lat = q_nope · wk_b`` (B, S, H, r), the roped
     query part (B, S, H, d_rope), and this chunk's latent cache entries
     ``[c_lat, rope(k_rope)]`` (B, S, r + d_rope)."""
@@ -343,9 +343,9 @@ def _mla_qkv(p: MLA, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor)
     return q_lat, q_rope, ckv
 
 
-def _mla_attend(p: MLA, cfg: ModelConfig, q_lat: torch.Tensor,
-                q_rope: torch.Tensor, ckv: torch.Tensor,
-                mask: torch.Tensor) -> torch.Tensor:
+def mla_attend(p: MLA, cfg: ModelConfig, q_lat: torch.Tensor,
+               q_rope: torch.Tensor, ckv: torch.Tensor,
+               mask: torch.Tensor) -> torch.Tensor:
     """Scores in latent space over the keys ``ckv`` (B, Sk, r + d_rope),
     f32 scores and softmax, ``o = (p · c_k) · wv_b · wo``.  mask:
     (B, 1, Sq, Sk) bool."""
@@ -378,10 +378,10 @@ def mla_fwd(p: MLA, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
     writes them in place and returns only the attention output (B, S, d).
     """
     B, S, _ = x.shape
-    q_lat, q_rope, ckv = _mla_qkv(p, cfg, x, positions)
+    q_lat, q_rope, ckv = mla_qkv(p, cfg, x, positions)
     if kv_cache is None:
-        return _mla_attend(p, cfg, q_lat, q_rope, ckv,
-                           _attn_mask(positions, positions, None))
+        return mla_attend(p, cfg, q_lat, q_rope, ckv,
+                          attn_mask(positions, positions, None))
     Ckv, kpos = kv_cache
     act = (torch.ones(B, dtype=torch.bool, device=x.device) if active is None
            else active.bool())
@@ -389,8 +389,8 @@ def mla_fwd(p: MLA, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
     Ckv[rows, positions] = torch.where(act[:, None, None], ckv, Ckv[rows, positions])
     kpos[rows, positions] = torch.where(act[:, None], positions.to(kpos.dtype),
                                         kpos[rows, positions])
-    mask = _attn_mask(positions, kpos, None) & (kpos >= 0)[:, None, None, :]
-    return _mla_attend(p, cfg, q_lat, q_rope, Ckv, mask)
+    mask = attn_mask(positions, kpos, None) & (kpos >= 0)[:, None, None, :]
+    return mla_attend(p, cfg, q_lat, q_rope, Ckv, mask)
 
 
 def paged_mla_fwd(p: MLA, cfg: ModelConfig, x: torch.Tensor, pos2: torch.Tensor,
@@ -404,14 +404,14 @@ def paged_mla_fwd(p: MLA, cfg: ModelConfig, x: torch.Tensor, pos2: torch.Tensor,
     ``lens``, as the JAX function does."""
     B, C, _ = x.shape
     P, page, w = ckvp.shape
-    q_lat, q_rope, ckv = _mla_qkv(p, cfg, x, pos2)
+    q_lat, q_rope, ckv = mla_qkv(p, cfg, x, pos2)
     ckvp.view(P * page, w).index_copy_(0, widx, ckv.reshape(B * C, w))
     S = ptab.shape[1] * page
     keys = ckvp[ptab.long()].reshape(B, S, w)
     kpos = torch.arange(S, device=x.device)[None].expand(B, S)
-    mask = (_attn_mask(pos2, kpos, None)
+    mask = (attn_mask(pos2, kpos, None)
             & (kpos < lens[:, None])[:, None, None, :])
-    return _mla_attend(p, cfg, q_lat, q_rope, keys, mask)
+    return mla_attend(p, cfg, q_lat, q_rope, keys, mask)
 
 
 # --------------------------------------------------------------------------- #

@@ -52,9 +52,10 @@ leaves are accepted by dtype name.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import functools
 import math
-from typing import Callable, Dict, Iterator, Mapping, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterator, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -120,10 +121,10 @@ def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
     """Zero-filled page pools ``{"kp", "vp"}`` of shape
     (L, n_pages, page_size, Hkv, D), or for MLA the latent pool
     ``{"ckvp"}`` (L, n_pages, page_size, r + d_rope).  Physical page 0 is
-    the trash page."""
+    the trash page; ``device="meta"`` gives the shapes alone."""
     if not pageable(cfg):
         raise ValueError(f"family {cfg.family!r} is not pageable")
-    device = resolve_device(device)
+    device = torch.device("meta") if str(device) == "meta" else resolve_device(device)
     dtype = working_dtype(cfg) if dtype is None else dtype
     if cfg.mla is not None:
         m = cfg.mla
@@ -138,7 +139,7 @@ def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
 # --------------------------------------------------------------------------- #
 # model
 # --------------------------------------------------------------------------- #
-def _ffn_fwd(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def ffn_fwd(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU, or for the moe family: with the ``ep_shard`` flag set, the
     expert-parallel dense mix over its mesh
     (:func:`repro_torch.distributed.expert_parallel.ep_moe_mix`); else the
@@ -179,7 +180,7 @@ class DecoderLayer(nn.Module):
         x = x + attend(self.attn, self.ln1(x))
         if cross is not None:
             x = x + cross(self.xattn, self.ln_x(x))
-        return x + _ffn_fwd(self.ffn, self.cfg, self.ln2(x))
+        return x + ffn_fwd(self.ffn, self.cfg, self.ln2(x))
 
 
 class MambaLayer(nn.Module):
@@ -291,12 +292,12 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 
 
 # stacked subtrees of the JAX pytree and their stack axes
-_STACKS = {"layers": 1, "layer_pairs": 2, "mamba_groups": 2, "mamba_tail": 1,
-           "shared_attn": 0, "enc_layers": 1, "enc_norm": 0}
+STACKS = {"layers": 1, "layer_pairs": 2, "mamba_groups": 2, "mamba_tail": 1,
+          "shared_attn": 0, "enc_layers": 1, "enc_norm": 0}
 
 
 def named_from_jax(cfg: ModelConfig, np_params: Mapping) -> Dict[str, object]:
-    """A JAX-layout pytree (stacks with their leading axes, :data:`_STACKS`;
+    """A JAX-layout pytree (stacks with their leading axes, :data:`STACKS`;
     numpy or tensor leaves) → the port's parameter names, one index per
     stacked axis (the map behind :func:`params_from_jax`, inverted by
     :func:`params_to_jax`)."""
@@ -314,7 +315,7 @@ def named_from_jax(cfg: ModelConfig, np_params: Mapping) -> Dict[str, object]:
         arr = node if isinstance(node, torch.Tensor) else np.asarray(node)
         for idx in np.ndindex(*arr.shape[:depth]):
             flat[".".join([top, *map(str, idx), prefix])] = arr[idx]
-    for top, depth in _STACKS.items():
+    for top, depth in STACKS.items():
         if top in np_params:
             walk(top, depth, "", np_params[top])
     return flat
@@ -346,24 +347,24 @@ def params_to_jax(cfg: ModelConfig, named: Mapping[str, object],
     """The inverse of :func:`params_from_jax`'s name map: tensors (or numpy
     arrays) under the port's parameter names — the model's, or any dict
     keyed like them, as the optimizer's moments are — laid out as the JAX
-    parameter pytree, each stack with its leading axes (:data:`_STACKS`;
+    parameter pytree, each stack with its leading axes (:data:`STACKS`;
     ``torch.stack`` or ``np.stack``).  ``convert`` is applied to each leaf
     as soon as it is stacked (a host copy keeps one stack on the device at
     a time)."""
     groups: Dict[Tuple[str, ...], Dict[Tuple[int, ...], object]] = {}
     for name, leaf in named.items():
         parts = name.split(".")
-        depth = _STACKS.get(parts[0], 0)
+        depth = STACKS.get(parts[0], 0)
         idx = tuple(int(i) for i in parts[1:1 + depth])
         groups.setdefault((parts[0], *parts[1 + depth:]), {})[idx] = leaf
     tree: Dict[str, object] = {}
     for path, items in groups.items():
-        depth = _STACKS.get(path[0], 0)
+        depth = STACKS.get(path[0], 0)
         if depth:
             shape = tuple(max(i[a] for i in items) + 1 for a in range(depth))
-            leaves = [items[i] for i in np.ndindex(*shape)]
-            stack = torch.stack if isinstance(leaves[0], torch.Tensor) else np.stack
-            leaf = stack(leaves).reshape(*shape, *leaves[0].shape)
+            stacked = [items[i] for i in np.ndindex(*shape)]
+            stack = torch.stack if isinstance(stacked[0], torch.Tensor) else np.stack
+            leaf = stack(stacked).reshape(*shape, *stacked[0].shape)
         else:
             leaf = items[()]
         node = tree
@@ -393,7 +394,7 @@ def cache_from_numpy(cache: Mapping, device: DeviceLike = None) -> Cache:
     of :func:`init_cache`'s or :func:`init_paged_cache`'s layouts, nested
     dicts included)."""
     device = resolve_device(device)
-    return _map_leaves(lambda path, leaf: _to_torch(leaf).to(device), cache)
+    return map_leaves(lambda path, leaf: _to_torch(leaf).to(device), cache)
 
 
 paged_cache_from_numpy = cache_from_numpy
@@ -402,7 +403,12 @@ paged_cache_from_numpy = cache_from_numpy
 def _embed(model: LM, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     """Token embeddings; gemma2 scales them by √d_model rounded to the
     working dtype first, as the reference does."""
-    x = model.embed[tokens]
+    return embed_scale(cfg, model.embed[tokens])
+
+
+def embed_scale(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """gemma2's √d_model in the working dtype times the looked-up rows
+    ``x``; ``x`` itself for every other config."""
     if cfg.local_global_every:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
     return x
@@ -593,6 +599,71 @@ def init_cache(cfg: ModelConfig, B: int, seq_len: int,
     return kv(L, S)
 
 
+@dataclasses.dataclass(frozen=True)
+class Block:
+    """One block of a cache step's walk over the model (:func:`blocks`):
+    ``kind`` ``"mamba"``, ``"attn"`` (GQA) or ``"mla"``; ``get`` picks its
+    weights from the model, or from any tree with the model's attribute
+    names; its cache leaves are ``{prefix}{key}`` under the subtree ``sub``
+    at stack index ``at`` (:meth:`leaf`).  ``window`` is an attention
+    block's ring, ``cross`` whisper's cross-attention."""
+    kind: str
+    get: Callable
+    at: Tuple[int, ...]
+    sub: Tuple[str, ...] = ()
+    prefix: str = ""
+    window: Optional[int] = None
+    cross: bool = False
+
+    def leaf(self, cache: Cache, key: str, lo: Optional[int] = None,
+             hi: Optional[int] = None) -> torch.Tensor:
+        """This block's ``key`` leaf of ``cache`` (a pool's, or with
+        ``lo``/``hi`` a contiguous cache's batch rows ``lo:hi``)."""
+        node = cache
+        for k in self.sub:
+            node = node[k]
+        at = self.at if lo is None else self.at + (slice(lo, hi),)
+        return node[self.prefix + key][at]
+
+
+def blocks(cfg: ModelConfig, n_layers: Optional[int] = None) -> List[Block]:
+    """The walk of a cache step over ``n_layers`` layers (None: the
+    config's): the Mamba-2 ``layers`` of ssm; zamba2's ``mamba_groups``,
+    each followed by ``shared_attn`` against its group's ``attn_`` buffer,
+    then ``mamba_tail``; gemma2's ``layer_pairs`` (local ``loc_`` ring,
+    global ``glob_`` buffer); or decoder ``layers`` (GQA or MLA, whisper's
+    with cross-attention)."""
+    n = cfg.n_layers if n_layers is None else n_layers
+    if cfg.family == "hybrid":
+        G, per, tail = _hybrid_shape(cfg)
+        out = []
+        for g in range(G):
+            out += [Block("mamba", lambda m, g=g, i=i: m.mamba_groups[g][i], (g, i),
+                          ("groups",)) for i in range(per)]
+            out.append(Block("attn", lambda m: m.shared_attn, (g,), prefix="attn_"))
+        return out + [Block("mamba", lambda m, i=i: m.mamba_tail[i], (i,), ("tail",))
+                      for i in range(tail)]
+    if cfg.local_global_every == 2:
+        return [Block("attn", lambda m, i=i, j=j: m.layer_pairs[i][j], (i,),
+                      prefix=("loc_", "glob_")[j], window=(cfg.sliding_window, None)[j])
+                for i in range(n // 2) for j in (0, 1)]
+    kind = "mamba" if cfg.family == "ssm" else "mla" if cfg.mla is not None else "attn"
+    return [Block(kind, lambda m, l=l: m.layers[l], (l,), window=ring_window(cfg),
+                  cross=cfg.is_encoder_decoder) for l in range(n)]
+
+
+def pos_buffers(cfg: ModelConfig) -> Tuple[Tuple[str, bool], ...]:
+    """(key, ring) of the position buffers a contiguous step writes before
+    its blocks: every GQA stack's (MLA's ``mla_fwd`` writes its own)."""
+    if cfg.family == "hybrid":
+        return (("attn_pos", False),)
+    if cfg.local_global_every == 2:
+        return (("loc_pos", True), ("glob_pos", False))
+    if cfg.family == "ssm" or cfg.mla is not None:
+        return ()
+    return (("pos", ring_window(cfg) is not None),)
+
+
 def step_with_cache(model: LM, cfg: ModelConfig, cache: Cache,
                     tokens: torch.Tensor, pos2: torch.Tensor, *,
                     rows: Optional[Tuple[int, int]] = None,
@@ -613,49 +684,8 @@ def step_with_cache(model: LM, cfg: ModelConfig, cache: Cache,
     ``n_frames`` of them (none for rows outside ``write``).  Returns logits
     (n, C, V) in f32, or (n, 1, V) when ``last_only``, and the cache.
     """
-    if stage_sliceable(cfg):
-        return stage_step(model, cfg, cache, tokens, pos2, first=True, last=True,
-                          rows=rows, write=write, last_only=last_only)
-    n, C = tokens.shape
-    lo, hi = _rows_of(cache, rows, n)
-    pos2 = pos2.long()
-    x = _embed(model, cfg, tokens)
-    active = _active_rows(n, write, tokens.device)
-
-    def mamba(layer, x, conv, ssm_st):
-        return _mamba_write(layer, x, conv, ssm_st, write)
-
-    def attend(layer, x, prefix: str, l: int, window: Optional[int], cross=None):
-        """``layer`` against buffer ``l`` of the ``{prefix}k/v`` stack."""
-        kv = (cache[f"{prefix}k"][l, lo:hi], cache[f"{prefix}v"][l, lo:hi])
-        return layer(x, lambda a, h: attention_fwd(a, cfg, h, pos2, window,
-                                                   kv_cache=kv, active=active), cross)
-
-    if cfg.family == "hybrid":
-        _write_pos(cache["attn_pos"][:, lo:hi], pos2, active, ring=False)
-        groups = cache["groups"]
-        for g, group in enumerate(model.mamba_groups):
-            for i, layer in enumerate(group):
-                x = mamba(layer, x, groups["conv"][g, i, lo:hi], groups["ssm"][g, i, lo:hi])
-            x = attend(model.shared_attn, x, "attn_", g, None)
-        for i, layer in enumerate(getattr(model, "mamba_tail", ())):
-            x = mamba(layer, x, cache["tail"]["conv"][i, lo:hi],
-                      cache["tail"]["ssm"][i, lo:hi])
-    elif cfg.local_global_every == 2:
-        _write_pos(cache["loc_pos"][:, lo:hi], pos2, active, ring=True)
-        _write_pos(cache["glob_pos"][:, lo:hi], pos2, active, ring=False)
-        for i, (local, glob) in enumerate(model.layer_pairs):
-            x = attend(local, x, "loc_", i, cfg.sliding_window)
-            x = attend(glob, x, "glob_", i, None)
-    else:                                   # encoder-decoder
-        window = ring_window(cfg)
-        _write_pos(cache["pos"][:, lo:hi], pos2, active, ring=window is not None)
-        xlen = torch.where(active, cache["xk"].shape[2], 0).to(torch.int32)
-        for l, layer in enumerate(model.layers):
-            cross = lambda a, h: cross_attention_fwd(
-                a, cfg, h, cache["xk"][l, lo:hi], cache["xv"][l, lo:hi], xlen)
-            x = attend(layer, x, "", l, window, cross)
-    return _logits(model, cfg, x, last_only), cache
+    return stage_step(model, cfg, cache, tokens, pos2, first=True, last=True,
+                      rows=rows, write=write, last_only=last_only)
 
 
 def _rows_of(cache: Cache, rows: Optional[Tuple[int, int]], n: int) -> Tuple[int, int]:
@@ -665,7 +695,7 @@ def _rows_of(cache: Cache, rows: Optional[Tuple[int, int]], n: int) -> Tuple[int
     return lo, hi
 
 
-def _active_rows(n: int, write: Optional[torch.Tensor], device) -> torch.Tensor:
+def active_rows(n: int, write: Optional[torch.Tensor], device) -> torch.Tensor:
     """(n,) bool: the rows listed in ``write`` (None: all)."""
     active = torch.ones(n, dtype=torch.bool, device=device)
     if write is not None:
@@ -677,17 +707,22 @@ def _mamba_write(layer, x: torch.Tensor, conv: torch.Tensor, ssm_st: torch.Tenso
                  write: Optional[torch.Tensor]) -> torch.Tensor:
     """One Mamba layer from a slot range's state, kept for ``write``."""
     x, (c2, s2) = layer(x, (conv, ssm_st))
-    if write is None:
-        conv.copy_(c2)
-        ssm_st.copy_(s2)
-    else:
-        conv.index_copy_(0, write, c2.index_select(0, write).to(conv.dtype))
-        ssm_st.index_copy_(0, write, s2.index_select(0, write).to(ssm_st.dtype))
+    keep_rows_(conv, c2, write)
+    keep_rows_(ssm_st, s2, write)
     return x
 
 
-def _write_pos(pos: torch.Tensor, pos2: torch.Tensor, active: torch.Tensor,
-               ring: bool) -> None:
+def keep_rows_(dst: torch.Tensor, src: torch.Tensor, write: Optional[torch.Tensor]) -> None:
+    """Copy the rows ``write`` (all when None) of a new state ``src`` into
+    the state ``dst``, in place."""
+    if write is None:
+        dst.copy_(src)
+    else:
+        dst.index_copy_(0, write, src.index_select(0, write).to(dst.dtype))
+
+
+def write_pos(pos: torch.Tensor, pos2: torch.Tensor, active: torch.Tensor,
+              ring: bool) -> None:
     """Record this chunk's positions (n, C) in every layer's position
     buffer ``pos`` (N, n, S) for the ``active`` rows: at ``pos2 % S`` on a
     ring, else at ``pos2``."""
@@ -717,44 +752,44 @@ def prefill_step(model: LM, cfg: ModelConfig, cache: Cache,
 # --------------------------------------------------------------------------- #
 # cache leaves (zamba2 nests "groups" and "tail")
 # --------------------------------------------------------------------------- #
-def _leaves(cache: Mapping, path: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], object]]:
+def leaves(cache: Mapping, path: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], object]]:
     """(key path, leaf) of every leaf of a (nested) cache dict."""
     for k, v in cache.items():
         if isinstance(v, Mapping):
-            yield from _leaves(v, path + (k,))
+            yield from leaves(v, path + (k,))
         else:
             yield path + (k,), v
 
 
-def _map_leaves(fn: Callable, cache: Mapping, *others: Mapping,
-                path: Tuple[str, ...] = ()) -> Dict[str, object]:
+def map_leaves(fn: Callable, cache: Mapping, *others: Mapping,
+               path: Tuple[str, ...] = ()) -> Dict[str, object]:
     """The same nesting with ``fn(path, leaf, *other leaves)`` at each leaf."""
-    return {k: (_map_leaves(fn, v, *(o[k] for o in others), path=path + (k,))
+    return {k: (map_leaves(fn, v, *(o[k] for o in others), path=path + (k,))
                 if isinstance(v, Mapping) else fn(path + (k,), v, *(o[k] for o in others)))
             for k, v in cache.items()}
 
 
-def _stack_depth(path: Tuple[str, ...]) -> int:
+def stack_depth(path: Tuple[str, ...]) -> int:
     """Stack axes before the batch axis: 2 for zamba2's group state
     (G, per_group), 1 everywhere else (the JAX ``_stack_depth``)."""
     return 2 if path[0] == "groups" else 1
 
 
-def _slot_index(path: Tuple[str, ...], slot) -> tuple:
-    return (slice(None),) * _stack_depth(path) + (slot,)
+def slot_index(path: Tuple[str, ...], slot) -> tuple:
+    return (slice(None),) * stack_depth(path) + (slot,)
 
 
 def _batch_size(cache: Mapping) -> int:
-    path, leaf = next(_leaves(cache))
-    return leaf.shape[_stack_depth(path)]
+    path, leaf = next(leaves(cache))
+    return leaf.shape[stack_depth(path)]
 
 
-def _leaf_init(path: Tuple[str, ...]) -> int:
+def leaf_init(path: Tuple[str, ...]) -> int:
     return -1 if path[-1].endswith("pos") else 0
 
 
 def _slot_mask(path: Tuple[str, ...], leaf: torch.Tensor, flags: torch.Tensor) -> torch.Tensor:
-    d = _stack_depth(path)
+    d = stack_depth(path)
     return flags.bool().reshape((1,) * d + (-1,) + (1,) * (leaf.dim() - d - 1))
 
 
@@ -763,23 +798,23 @@ def reset_slots(cfg: ModelConfig, cache: Cache, reset: torch.Tensor) -> Cache:
     go back to empty — position buffers to -1, KV and recurrent state to
     zero.  A reused slot must be wiped before its first chunk: recurrent
     state is continued unconditionally."""
-    return _map_leaves(lambda p, leaf: torch.where(
-        _slot_mask(p, leaf, reset), torch.full_like(leaf, _leaf_init(p)), leaf), cache)
+    return map_leaves(lambda p, leaf: torch.where(
+        _slot_mask(p, leaf, reset), torch.full_like(leaf, leaf_init(p)), leaf), cache)
 
 
 def mask_cache_update(cfg: ModelConfig, old_cache: Cache, new_cache: Cache,
                       active: torch.Tensor) -> Cache:
     """JAX semantics, new tensors: keep updates only for the slots flagged
     in ``active`` (B,) bool; inactive slots keep the old cache."""
-    return _map_leaves(lambda p, old, new: torch.where(_slot_mask(p, old, active), new, old),
-                       old_cache, new_cache)
+    return map_leaves(lambda p, old, new: torch.where(_slot_mask(p, old, active), new, old),
+                      old_cache, new_cache)
 
 
 def wipe_slots_(cache: Cache, slots: Sequence[int]) -> Cache:
     """:func:`reset_slots` in place for the listed slots."""
-    for path, leaf in _leaves(cache):
+    for path, leaf in leaves(cache):
         for s in slots:
-            leaf[_slot_index(path, s)].fill_(_leaf_init(path))
+            leaf[slot_index(path, s)].fill_(leaf_init(path))
     return cache
 
 
@@ -895,14 +930,14 @@ def slice_stage_params(cfg: ModelConfig, model: LM, lo: int, hi: int,
 def slice_stage_cache(cache: Cache, lo: int, hi: int) -> Cache:
     """Cache slice for layers ``[lo, hi)``: views of every leaf's leading
     layer axis (stage-sliceable families stack every leaf on it)."""
-    return _map_leaves(lambda path, t: t[lo:hi], cache)
+    return map_leaves(lambda path, t: t[lo:hi], cache)
 
 
 def concat_stage_states(parts: Sequence[Mapping]) -> Dict[str, object]:
     """Reassemble per-stage extracts (host numpy, leading layer axis) into
     the full per-layer wire format — byte-identical to a single-engine
     extract, so a pipelined export installs anywhere."""
-    return _map_leaves(lambda path, *ls: np.concatenate(ls, axis=0), *parts)
+    return map_leaves(lambda path, *ls: np.concatenate(ls, axis=0), *parts)
 
 
 def stage_step(stage, cfg: ModelConfig, cache: Cache, x: torch.Tensor,
@@ -911,7 +946,8 @@ def stage_step(stage, cfg: ModelConfig, cache: Cache, x: torch.Tensor,
                write: Optional[torch.Tensor] = None,
                last_only: bool = False) -> Tuple[torch.Tensor, Cache]:
     """Contiguous-cache forward over ONE pipeline stage's layer slice (the
-    JAX ``stage_step``), with :func:`step_with_cache`'s ``rows``/``write``
+    JAX ``stage_step``), or over a whole model of any family, walking its
+    :func:`blocks`, with :func:`step_with_cache`'s ``rows``/``write``
     contract.  ``x`` is the int tokens (n, C) on the first stage and the
     previous stage's hidden state (n, C, d) otherwise; ``cache`` holds the
     stage's layers.  Returns logits on the last stage (as
@@ -922,24 +958,25 @@ def stage_step(stage, cfg: ModelConfig, cache: Cache, x: torch.Tensor,
     pos2 = pos2.long()
     if first:
         x = _embed(stage, cfg, x)
-    if cfg.family == "ssm":
-        for l, layer in enumerate(stage.layers):
-            x = _mamba_write(layer, x, cache["conv"][l, lo:hi], cache["ssm"][l, lo:hi],
-                             write)
-    else:
-        active = _active_rows(n, write, pos2.device)
-        if cfg.mla is not None:
-            for l, layer in enumerate(stage.layers):
-                kv = (cache["ckv"][l, lo:hi], cache["pos"][l, lo:hi])
-                x = layer(x, lambda a, h: mla_fwd(a, cfg, h, pos2, kv_cache=kv,
-                                                  active=active))
+    active = active_rows(n, write, pos2.device)
+    for key, ring in pos_buffers(cfg):
+        write_pos(cache[key][:, lo:hi], pos2, active, ring=ring)
+    xlen = (torch.where(active, cfg.n_frames, 0).to(torch.int32) if cfg.is_encoder_decoder
+            else None)
+    for b in blocks(cfg, len(stage.layers) if stage_sliceable(cfg) else None):
+        layer, at = b.get(stage), lambda key: b.leaf(cache, key, lo, hi)
+        if b.kind == "mamba":
+            x = _mamba_write(layer, x, at("conv"), at("ssm"), write)
+        elif b.kind == "mla":
+            kv = (at("ckv"), at("pos"))
+            x = layer(x, lambda a, h: mla_fwd(a, cfg, h, pos2, kv_cache=kv, active=active))
         else:
-            window = ring_window(cfg)
-            _write_pos(cache["pos"][:, lo:hi], pos2, active, ring=window is not None)
-            for l, layer in enumerate(stage.layers):
-                kv = (cache["k"][l, lo:hi], cache["v"][l, lo:hi])
-                x = layer(x, lambda a, h: attention_fwd(a, cfg, h, pos2, window,
-                                                        kv_cache=kv, active=active))
+            kv, cross = (at("k"), at("v")), None
+            if b.cross:
+                xk, xv = at("xk"), at("xv")
+                cross = lambda a, h: cross_attention_fwd(a, cfg, h, xk, xv, xlen)
+            x = layer(x, lambda a, h: attention_fwd(a, cfg, h, pos2, b.window,
+                                                    kv_cache=kv, active=active), cross)
     if not last:
         return x, cache
     return _logits(stage, cfg, x, last_only), cache
@@ -991,7 +1028,7 @@ def extract_slot(cfg: ModelConfig, cache: Cache, slot: int) -> Dict[str, object]
     """One batch slot's KV/SSM state as a host copy: the (nested) cache
     dict with the batch axis removed, positions absolute (the JAX wire
     format)."""
-    return _map_leaves(lambda p, leaf: _to_numpy(leaf[_slot_index(p, slot)]), cache)
+    return map_leaves(lambda p, leaf: _to_numpy(leaf[slot_index(p, slot)]), cache)
 
 
 def _install_copy(dst: torch.Tensor, src) -> torch.Tensor:

@@ -25,7 +25,7 @@ from repro_torch.launch.mesh import logical_devices
 from repro_torch.models import lm
 from repro_torch.serving.backend import TorchBackend, make_torch_backend
 from repro_torch.serving.engine import Engine
-from repro_torch.serving.sharded import PipelinedEngine
+from repro_torch.serving.sharded import PipelinedEngine, ShardedEngine
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "repro")
@@ -158,11 +158,11 @@ def test_ops_route_only_cpu_and_cuda():
 
 def test_unported_paths_raise_not_implemented():
     """A pp-2 group builds a ``PipelinedEngine`` (its stages share the one
-    device); a tp-2 group of a family the port does not shard (mamba2, with
-    an allocator over logical devices) raises and returns its submesh;
-    ``fail`` refuses an engine the pool does not hold, as the reference's
-    does; every config of the registry, whisper's encoder-decoder included,
-    builds its model and its contiguous cache."""
+    device); a tp-2 group of mamba2 (with an allocator over logical
+    devices) builds a ``ShardedEngine`` on its submesh, as every family
+    now does; ``fail`` refuses an engine the pool does not hold, as the
+    reference's does; every config of the registry, whisper's
+    encoder-decoder included, builds its model and its contiguous cache."""
     cfg = get_config("qwen2-1.5b").reduced()
     model = lm.init_params(cfg, device="cpu")
     for arch in ("gemma2-9b", "zamba2-7b", "whisper-tiny"):
@@ -179,9 +179,10 @@ def test_unported_paths_raise_not_implemented():
     ssm = get_config("mamba2-1.3b").reduced()
     ssm_backend = TorchBackend(ssm, lm.init_params(ssm, device="cpu"), device="cpu",
                                devices=logical_devices(4, "cpu"))
-    with pytest.raises(NotImplementedError, match="not sharded by the port"):
-        ssm_backend.apply_plan(Plan((ReplicaGroup("m", "H100-80G", 2, 2, 1),)), None)
-    assert ssm_backend.allocator.free_devices == 4
+    tp2 = ReplicaGroup("m", "H100-80G", 2, 2, 1)
+    ssm_backend.apply_plan(Plan((tp2,)), None)
+    assert isinstance(ssm_backend.pool._replicas[tp2][0], ShardedEngine)
+    assert ssm_backend.allocator.free_devices == 2
     assert backend.failure_count == 0
 
 

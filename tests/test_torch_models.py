@@ -102,8 +102,8 @@ def test_sdpa_matches_reference():
     qpos = np.broadcast_to(np.arange(3, 9, dtype=np.int32), (2, 6))
     kpos = np.broadcast_to(np.arange(9, dtype=np.int32), (2, 9))
     jm = jlayers._attn_mask(jnp.asarray(qpos), jnp.asarray(kpos), 4)
-    tm = tlayers._attn_mask(torch.from_numpy(qpos.copy()),
-                            torch.from_numpy(kpos.copy()), 4)
+    tm = tlayers.attn_mask(torch.from_numpy(qpos.copy()),
+                           torch.from_numpy(kpos.copy()), 4)
     np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
     want = jlayers.sdpa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jm, 30.0)
     got = tlayers.sdpa(torch.from_numpy(q), torch.from_numpy(k),

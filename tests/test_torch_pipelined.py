@@ -136,7 +136,7 @@ def test_stage_steps_compose_to_the_whole_step(arch, paged):
             jx, _ = jlm.stage_step(jsp, jcfg, jpart, jx, pos2, first=first, last=last)
     assert torch.equal(x, want)
     np.testing.assert_allclose(x.numpy(), np.asarray(jx), atol=2e-4, rtol=2e-4)
-    for (path, a), (_, b) in zip(tlm._leaves(staged), tlm._leaves(whole)):
+    for (path, a), (_, b) in zip(tlm.leaves(staged), tlm.leaves(whole)):
         assert torch.equal(a, b), path
 
 

@@ -6,8 +6,9 @@ expert parallelism (mixtral) against the dense mix; the head-sharded paged
 decode's plain path per shard against the Pallas kernel in interpret mode,
 and the KV-head row tables of the replicated-pool fallback; cross-TP
 migration with JAX engines on either side; pool failover onto a survivor of
-another TP degree; ``TorchBackend`` with and without an allocator; the
-families the port does not shard; and ``repro_torch.launch.sharded_check``.
+another TP degree; ``TorchBackend`` with and without an allocator (a tp-8
+group of qwen2-1.5b in ``fsdp`` mode); every config's tp-2 group built
+by ``engine_for_group``; and ``repro_torch.launch.sharded_check``.
 Greedy tokens are compared exactly.
 """
 import dataclasses
@@ -29,6 +30,7 @@ from repro.serving.engine import Request as JRequest
 from repro.serving.engine import RequestState as JRequestState
 from repro.serving.engine import SlotExport as JSlotExport
 from repro_torch.configs import get_config as tget_config
+from repro_torch.configs import list_archs
 from repro_torch.core.plan import Plan, ReplicaGroup, Workload
 from repro_torch.distributed import sharding as sh
 from repro_torch.distributed.expert_parallel import ep_moe_mix
@@ -48,7 +50,7 @@ from repro_torch.serving.engine import RequestState as TRequestState
 from repro_torch.serving.engine import SlotExport as TSlotExport
 from repro_torch.serving.pool import EnginePool
 from repro_torch.serving.sharded import (PipelinedEngine, ShardedEngine, SubmeshAllocator,
-                                         engine_for_group, sharded_unsupported_reason)
+                                         engine_for_group)
 
 torch.set_num_threads(1)
 MAX_SEQ = 48
@@ -386,33 +388,38 @@ def test_torch_backend_with_and_without_an_allocator():
     assert type(be.pool._replicas[wide][0]) is TEngine and be.allocator.shortfalls == 1
     be.apply_plan(Plan((tp2,)), None)
     assert be.allocator.free_devices == 6
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        be.apply_plan(Plan((ReplicaGroup("m", "H100-80G", 8, 2, 1),)), None)
-    assert be.allocator.free_devices == 8
+    tp8 = ReplicaGroup("m", "H100-80G", 8, 2, 1)          # 12 heads: fsdp
+    be.apply_plan(Plan((tp8,)), None)
+    eng = be.pool._replicas[tp8][0]
+    assert isinstance(eng, ShardedEngine) and eng.sharding_policy.mode == "fsdp"
+    assert be.allocator.free_devices == 0
+    met = be.serve_interval([Workload("m", 1, 256, 512)])
+    assert met.measured and met.requests == be.requests_per_model
+    be.apply_plan(Plan((tp2,)), None)
+    assert be.allocator.free_devices == 6
 
 
-@pytest.mark.parametrize("arch", ["mamba2-1.3b", "minicpm3-4b", "gemma2-9b",
-                                  "zamba2-7b", "whisper-tiny"])
-def test_unsharded_families_raise(arch):
-    cfg = tget_config(arch).reduced()
-    assert sharded_unsupported_reason(cfg, 2) is not None
+@pytest.mark.parametrize("arch", list_archs())
+def test_every_config_builds_a_sharded_engine_at_tp2(arch):
+    """``engine_for_group`` gives each of the ten configs' tp-2 groups a
+    ``ShardedEngine`` whose greedy tokens equal the plain engine's (f32,
+    reduced), and returns its submesh; a stage-sliceable config's pp-2
+    group a ``PipelinedEngine``."""
+    cfg = dataclasses.replace(tget_config(arch).reduced(), dtype="float32")
     model = tlm.init_params(cfg, device="cpu")
+    prompts = _prompts(cfg, 1, 9)
+    kw = dict(n_slots=1, max_seq_len=32, device="cpu")
+    ref = _drain(TEngine(cfg, model, **kw), TRequest, prompts, 4)
     alloc = _alloc(4)
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        ShardedEngine(cfg, model, alloc.alloc((1, 2)), allocator=alloc, n_slots=1,
-                      max_seq_len=32)
-    alloc = _alloc(4)
-    with pytest.raises(NotImplementedError, match="not sharded by the port"):
-        engine_for_group(cfg, model, ReplicaGroup("m", "H100-80G", 2, 1, 1), alloc,
-                         n_slots=1, max_seq_len=32, device="cpu")
+    eng = engine_for_group(cfg, model, ReplicaGroup("m", "H100-80G", 2, 1, 1), alloc, **kw)
+    assert isinstance(eng, ShardedEngine) and alloc.free_devices == 2
+    assert _drain(eng, TRequest, prompts, 4) == ref
+    eng.release_devices()
     assert alloc.free_devices == 4
-    if tlm.stage_sliceable(cfg):      # pp without tp serves every sliceable family
+    if tlm.stage_sliceable(cfg):
         eng = engine_for_group(cfg, model, ReplicaGroup("m", "H100-80G", 1, 1, 1, pp=2),
-                               alloc, n_slots=1, max_seq_len=32, device="cpu")
+                               alloc, **kw)
         assert isinstance(eng, PipelinedEngine) and alloc.free_devices == 2
-    for arch_ok in ("qwen2-1.5b", "qwen1.5-110b", "chameleon-34b", "mixtral-8x22b"):
-        assert sharded_unsupported_reason(tget_config(arch_ok), 4) is None
-    assert "n_heads=12" in sharded_unsupported_reason(tget_config("qwen2-1.5b"), 8)
 
 
 def test_sharded_check_runs_every_check():

@@ -189,7 +189,7 @@ def test_masked_rows_step_and_wipe_match_reset_and_mask():
     jr = jlm.reset_slots(jcfg, jc, jnp.asarray(reset))
     _, jn = jlm.step_with_cache(params, jcfg, jr, jnp.asarray(toks), jnp.asarray(pos1))
     jm = jlm.mask_cache_update(jcfg, jr, jn, jnp.asarray(active))
-    clone = lambda c: tlm._map_leaves(lambda p, t: t.clone(), c)
+    clone = lambda c: tlm.map_leaves(lambda p, t: t.clone(), c)
     pure = tlm.reset_slots(tcfg, clone(tc), torch.from_numpy(reset))
     pure_old = clone(pure)
     with torch.no_grad():
