@@ -6,7 +6,9 @@ sm_90a).  ``--only kernels`` stops after phase 3.
 Phases, each printing its own lines; any failure raises and exits non-zero:
   1. device: CUDA present, card name and power limit (nvidia-smi);
   2. build: the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
-     source, in parallel; ptxas registers, shared memory and spills);
+     source, all started together; phase 3 waits for a library at its first
+     use; each source's seconds, ptxas registers, shared memory and spills
+     reported after phase 3);
   3. each kernel against its plain PyTorch version at the main paths'
      full-width shapes and phases 4n's and 4q's shard shapes (bf16 to 2e-2, f32 to
      2e-5; ``moe_gmm`` at mixtral-8x7b's and mixtral-8x22b's expert
@@ -569,15 +571,17 @@ def check_kernels(torch):
 
     # --- flash attention ----------------------------------------------------
     def fa_plan(h, hkv, Sq, kvl, d=D, window=None, Sk=S):
-        tgt = sp.target(n_sm, fa_k.smem_bytes(torch.bfloat16, d))
-        pairs = -(-Sq * (h // hkv) // fa_k.ROWS) * hkv
-        per, n = sp.split_plan(pairs, [sp.lane_tiles(l, Sq, Sk, window) for l in kvl],
-                               tgt, sp.max_splits(pairs, Sk, tgt))
-        return (f"split plan at target {tgt}: {pairs} (row block, KV head) pairs per "
-                f"lane, {per} tile(s) of {sp.TILE} keys per split, splits per lane {n}, "
-                f"{pairs * sum(max(x, 1) for x in n)} work items in a grid of "
-                f"{sp.grid_bound(pairs, len(kvl), tgt)}"
-                + (", combine pass" if max(n) > 1 else ", no combine"))
+        lp = fa_k.launch_plan(torch.bfloat16, n_sm, fa_k.smem_bytes(torch.bfloat16, d),
+                              len(kvl), Sq, h, hkv, Sk)
+        tiles = [sp.lane_tiles(l, Sq, Sk, window) for l in kvl]
+        bp = fa_k.block_plan(torch.bfloat16, Sq, h, hkv, tiles, lp.target, lp.consumers)
+        per, n = sp.split_plan(bp.pairs, tiles, lp.target, lp.n_cap, bp.min_per, True)
+        return (f"split plan at target {lp.target}: {bp.rows}-row blocks splitting "
+                f"{'keys' if bp.key_split else 'rows'}, {bp.pairs} (row block, KV head) "
+                f"pairs per lane, {per} tile(s) of {sp.TILE} keys per split, splits per "
+                f"lane {n}, {bp.pairs * sum(max(x, 1) for x in n)} work items in a grid "
+                f"of {lp.grid}"
+                + (", combine folded into the last split" if max(n) > 1 else ", no split"))
 
     def pools(h, hkv, dt):
         """q for one 64-token chunk per lane, the layer's page pools and a
@@ -842,7 +846,9 @@ def check_shard_kernels(torch) -> dict:
     decode and non-causal flash attention through the row table of a
     width-3 view of ``xk``/``xv`` for a tp-2 shard's heads 3..5, and of the
     width-6 view for an fsdp device's 2 lanes; 1500 frames, D 64) against
-    the plain versions on those heads' contiguous slice."""
+    the plain versions on those heads' contiguous slice.  Each flash
+    attention beside SDPA on the same K/V gathered beforehand, but under
+    gemma2's softcap, which SDPA has no form for."""
     from repro_torch.kernels.flash_attention import kernel as fa_k, ref as fa_r
     from repro_torch.kernels.flash_decode import kernel as fd_k, ops as fd_o, ref as fd_r
     from repro_torch.kernels.moe_gmm import kernel as moe_k, ref as moe_r
@@ -862,7 +868,9 @@ def check_shard_kernels(torch) -> dict:
     def randn(*shape):
         return torch.randn(shape, device=dev, generator=gen).to(bf)
 
-    def record(key, text, call, plain, name, nbytes, flops):
+    def record(key, text, call, plain, name, nbytes, flops, lib=None):
+        """``lib``: (name, call) of one PyTorch call computing the same
+        function, timed beside the kernel."""
         err = max_err(torch, call(), plain(), "bfloat16")
         ms = time_ms(torch, lambda i: call(), 1)
         dms = device_ms(torch, lambda i: call(), 1, name)
@@ -870,9 +878,33 @@ def check_shard_kernels(torch) -> dict:
         b_ms, b_by = bound(nbytes, flops, "bfloat16")
         out[key] = dict(max_abs_err=err, ms=ms, device_ms=dms, plain_ms=pms,
                         bound_ms=b_ms, bound_by=b_by)
+        lib_text = ""
+        if lib is not None:
+            lib_err = max_err(torch, lib[1]().transpose(1, 2), plain(), "bfloat16")
+            lms = time_ms(torch, lambda i: lib[1](), 1)
+            ldms = device_ms(torch, lambda i: lib[1](), 1, "")
+            out[key].update(library=lib[0], library_ms=lms, library_device_ms=ldms,
+                            library_err=lib_err)
+            lib_text = (f", {lib[0]} {lms:.4f} ms (device {ldms:.4f} ms, max |err| against "
+                        f"the plain version {lib_err:.3e})")
         print(f"[kernels] shard shape: {text}: max_abs_err={err:.3e} (tol "
               f"{TOL['bfloat16']}); {ms:.4f} ms per call (device {dms:.4f} ms), plain "
-              f"{pms:.4f} ms, bound {b_ms:.5f} ms by {b_by}")
+              f"{pms:.4f} ms{lib_text}, bound {b_ms:.5f} ms by {b_by}")
+
+    def sdpa(q, k, v, causal):
+        """SDPA on q (B, Sq, H, D) and K/V (B, Sk, Hkv, D) gathered beforehand:
+        the queries end-aligned to the keys, ``enable_gqa``."""
+        import torch.nn.functional as nnf
+        qd, kd, vd = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        sq, sk = q.shape[1], k.shape[1]
+        mask = (torch.arange(sk, device=dev)[None] <= torch.arange(sq, device=dev)[:, None]
+                + sk - sq) if causal else None
+        return "SDPA", lambda: nnf.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask,
+                                                                enable_gqa=True)
+
+    def gathered(pool, table, n):
+        """One lane's first n keys of a page pool through its page table."""
+        return pool[table[0].long()].reshape(1, -1, *pool.shape[2:])[:, :n]
 
     keys = int(kl.sum())
     # tp 2: one shard's pool slice (Hkv 1) and its 6 query heads
@@ -903,14 +935,16 @@ def check_shard_kernels(torch) -> dict:
            "kv_len 512, H=6 Hkv=1 on the paged pool (one tp-2 shard)",
            lambda: fa_k.flash_attention(q6c, kp1, vp1, True, None, None, klp, pt[:1]),
            lambda: fa_r.flash_attention_ref(q6c, kp1, vp1, True, None, None, klp, pt[:1]),
-           "flash_attention", 2 * 512 * D * 2 + 2 * 64 * 6 * D * 2, 4.0 * pkeys * 6 * D)
+           "flash_attention", 2 * 512 * D * 2 + 2 * 64 * 6 * D * 2, 4.0 * pkeys * 6 * D,
+           sdpa(q6c, gathered(kp1, pt, 512), gathered(vp1, pt, 512), True))
     record("flash_attention tp4", "flash_attention one lane, a 64-token chunk at "
            "kv_len 512, 3 query heads against KV head 1 of the replicated pool through "
            "its row table (one tp-4 shard)",
            lambda: fa_k.flash_attention(q3c, kv, vv, True, None, None, klp, rows[:1]),
            lambda: fa_r.flash_attention_ref(q3c, one(kp2), one(vp2), True, None, None, klp,
                                             pt[:1]),
-           "flash_attention", 2 * 512 * D * 2 + 2 * 64 * 3 * D * 2, 4.0 * pkeys * 3 * D)
+           "flash_attention", 2 * 512 * D * 2 + 2 * 64 * 3 * D * 2, 4.0 * pkeys * 3 * D,
+           sdpa(q3c, gathered(one(kp2), pt, 512), gathered(one(vp2), pt, 512), True))
     del kp1, vp1, kp2, vp2
     # one EP shard of mixtral-8x7b: 4 experts
     E, DM, FF = 4, 4096, 14336
@@ -958,12 +992,15 @@ def check_shard_kernels(torch) -> dict:
                lambda: fd_r.flash_decode_ref(q, K, V, kl, cap), "decode",
                2 * keys * Hkv * D * 2 + 2 * B * H * D * 2, 4.0 * keys * H * D)
         qc, Kc, Vc = randn(1, 64, H, D), K[:1].contiguous(), V[:1].contiguous()
+        # SDPA has no softcap, and compiling flex_attention at this shape takes
+        # ~25 s of the command's time: no library call under the softcap
+        lib = sdpa(qc, Kc, Vc, True) if cap is None else None
         record(f"flash_attention H{H} D{D}", f"flash_attention one lane, a 64-token chunk "
                f"at kv_len 512, H={H} Hkv={Hkv} D={D} ({what})",
                lambda: fa_k.flash_attention(qc, Kc, Vc, True, None, cap, klp),
                lambda: fa_r.flash_attention_ref(qc, Kc, Vc, True, None, cap, klp),
                "flash_attention", 2 * 512 * Hkv * D * 2 + 2 * 64 * H * D * 2,
-               4.0 * pkeys * H * D)
+               4.0 * pkeys * H * D, lib)
         del K, V
     # phase 4q: whisper-tiny's cross-attention over a contiguous xk/xv (1500
     # frames, Hkv 6, D 64) read through the row table of its view of w KV
@@ -993,7 +1030,7 @@ def check_shard_kernels(torch) -> dict:
                                             rows_x[:1]),
                lambda: fa_r.flash_attention_ref(qxc, kg[:1], vg[:1], False, None, None, fl[:1]),
                "flash_attention", 2 * F * w * DX * 2 + 2 * 64 * w * DX * 2,
-               4.0 * 64 * F * w * DX)
+               4.0 * 64 * F * w * DX, sdpa(qxc, kg[:1], vg[:1], False))
     del xk, xv
     torch.cuda.empty_cache()
     return out
@@ -1335,6 +1372,13 @@ def check_whisper_shapes(torch, rows, randn, timed, text, fa_plan):
             b, sq, sk, kvl, causal)
         print(f"[kernels] flash_attention whisper {label} bf16 timed at B={b} Sq={sq} Sk={sk} "
               f"H=Hkv={W_H} D={W_D} kv_len={kvl or 'Sk'} causal={causal}: {text(t)}")
+    # the bf16 body's tensor-core work a tile and warpgroup at D 64: S = Q K^T
+    # (64 x 64 x 64) and P V twice, P's hi and lo halves (64 x 64 x 64 each)
+    s_ops = pv_ops = 2 * 64 * 64 * W_D
+    print(f"[kernels] flash_attention whisper encoder: tensor-core operations a tile and "
+          f"warpgroup S {s_ops}, P V hi {pv_ops}, P V lo {pv_ops}: P V hi + lo "
+          f"{200 * pv_ops / (s_ops + 2 * pv_ops):.1f}% of them, the lo product alone "
+          f"{100 * pv_ops / (s_ops + 2 * pv_ops):.1f}%")
     t = out["flash_decode cross-attention"] = decode(F_, cross_kl)
     tgt = sp.target(n_sm, fd_k.smem_bytes(torch.bfloat16, W_D))
     per, n = sp.split_plan(W_H, [sp.lane_tiles(x, 1, F_, None) for x in cross_kl], tgt,
@@ -4505,6 +4549,48 @@ def card_vs_cpu_train(torch, arch: str = "qwen2-1.5b", n_layers: int = 2, batch:
     return worst
 
 
+def report_build(torch, t0: float) -> None:
+    """Phase 2's report, once phase 3 has loaded every library: each
+    source's nvcc seconds, ptxas registers, shared memory and spills per
+    kernel, and the dynamic shared memory of the kernels' layouts."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import kernel as fa_k
+    from repro_torch.kernels.flash_decode import kernel as fd_k
+    from repro_torch.kernels.moe_gmm import kernel as moe_k
+    build.build(SOURCES)                 # every library is loaded by now
+    print(f"[build] nvcc ({len(SOURCES)} sources in parallel, started "
+          f"{time.monotonic() - t0:.1f}s ago); each: " + ", ".join(
+              f"{src} {build.build_seconds[src]:.1f}s" for src in SOURCES
+              if src in build.build_seconds))
+    for src in SOURCES:
+        for kernel, regs, spills in ptxas_summary(build.build_log(src)):
+            print(f"[build] {src}: {kernel} {regs} registers, {spills}")
+    # dynamic shared memory per block, from the kernels' layouts at the
+    # main paths' shapes (ptxas reports static shared memory only)
+    from repro_torch.kernels.ssd_scan import kernel as ssd_k
+    smem = {**{f"decode_split_{body} ({name}, D={D})": fd_k.smem_bytes(dt, D)
+               for D in (64, 112, 128, 256)
+               for body, name, dt in (("tc_kernel", "bf16", torch.bfloat16),
+                                      ("simt_kernel", "f32", torch.float32))},
+            **{f"flash_attention_{body} ({name}, D={D})": fa_k.smem_bytes(dt, D)
+               for D in (64, 112, 128, 256)
+               for body, name, dt in (("wgmma_kernel", "bf16", torch.bfloat16),
+                                      ("simt_kernel", "f32", torch.float32))},
+            **{f"ssd_scan ({'tc, bf16' if dt == torch.bfloat16 else 'f32'}, p={p}, n={n})":
+               ssd_k.smem_bytes(dt, p, n)
+               for dt in (torch.bfloat16, torch.float32) for p, n in ssd_k.SHAPES}}
+    need(all(ssd_k.smem_bytes(dt, p, n) == ssd_k.built_smem_bytes(dt, p, n)
+             for dt in (torch.bfloat16, torch.float32) for p, n in ssd_k.SHAPES),
+         "kernels/ssd_scan/kernel.py::smem_bytes disagrees with csrc/ssd_scan.cu")
+    for C, what in ((8, "C 8"), (160, "C 160"), (512, "C 512")):   # bf16 / f32
+        for which in ("gate_up", "down"):
+            smem[f"moe_gmm {which} ({what})"] = " / ".join(
+                f"{moe_k.smem_bytes(dt, C, which):,}" for dt in (torch.bfloat16, torch.float32))
+    print("[build] dynamic shared memory per block: " + "; ".join(
+        f"{k} {v if isinstance(v, str) else format(v, ',')} B"
+        for k, v in smem.items()))
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -4530,42 +4616,13 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # phase 2: build
+    # phase 2: build, one nvcc per source, all started now; phase 3 waits
+    # for a library when it first needs it, so its first checks run while
+    # the longest source still compiles
     from repro_torch.kernels import build
-    from repro_torch.kernels.flash_attention import kernel as fa_k
-    from repro_torch.kernels.flash_decode import kernel as fd_k
-    from repro_torch.kernels.moe_gmm import kernel as moe_k
     t0 = time.monotonic()
-    build.build(SOURCES)
-    print(f"[build] nvcc ({len(SOURCES)} sources in parallel) "
-          f"{time.monotonic() - t0:.2f}s")
-    for src in SOURCES:
-        for kernel, regs, spills in ptxas_summary(build.build_log(src)):
-            print(f"[build] {src}: {kernel} {regs} registers, {spills}")
-    # dynamic shared memory per block, from the kernels' layouts at the
-    # main paths' shapes (ptxas reports static shared memory only)
-    from repro_torch.kernels.ssd_scan import kernel as ssd_k
-    smem = {**{f"decode_split_{body} ({name}, D={D})": fd_k.smem_bytes(dt, D)
-               for D in (64, 112, 128, 256)
-               for body, name, dt in (("tc_kernel", "bf16", torch.bfloat16),
-                                      ("simt_kernel", "f32", torch.float32))},
-            **{f"flash_attention_{body} ({name}, D={D})": fa_k.smem_bytes(dt, D)
-               for D in (64, 112, 128, 256)
-               for body, name, dt in (("tc_kernel", "bf16", torch.bfloat16),
-                                      ("simt_kernel", "f32", torch.float32))},
-            **{f"ssd_scan ({'tc, bf16' if dt == torch.bfloat16 else 'f32'}, p={p}, n={n})":
-               ssd_k.smem_bytes(dt, p, n)
-               for dt in (torch.bfloat16, torch.float32) for p, n in ssd_k.SHAPES}}
-    need(all(ssd_k.smem_bytes(dt, p, n) == ssd_k.built_smem_bytes(dt, p, n)
-             for dt in (torch.bfloat16, torch.float32) for p, n in ssd_k.SHAPES),
-         "kernels/ssd_scan/kernel.py::smem_bytes disagrees with csrc/ssd_scan.cu")
-    for C, what in ((8, "C 8"), (160, "C 160"), (512, "C 512")):   # bf16 / f32
-        for which in ("gate_up", "down"):
-            smem[f"moe_gmm {which} ({what})"] = " / ".join(
-                f"{moe_k.smem_bytes(dt, C, which):,}" for dt in (torch.bfloat16, torch.float32))
-    print("[build] dynamic shared memory per block: " + "; ".join(
-        f"{k} {v if isinstance(v, str) else format(v, ',')} B"
-        for k, v in smem.items()))
+    build.start(SOURCES)
+    print(f"[build] nvcc started for {len(SOURCES)} sources in parallel")
 
     # phase 3
     t3 = time.monotonic()
@@ -4573,6 +4630,7 @@ def main(argv=None) -> int:
     rows["shard_kernels"] = check_shard_kernels(torch)
     rows["backward"] = check_backward(torch)
     print(f"[time] phase 3: {time.monotonic() - t3:.1f}s")
+    report_build(torch, t0)
     print(json.dumps({"flash_attention_serving": rows["flash_attention_serving"],
                       "decode_serving": rows["decode_serving"],
                       "head_dims": rows["head_dims"], "whisper": rows["whisper"],

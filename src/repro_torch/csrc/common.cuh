@@ -150,12 +150,14 @@ __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint3
 // 64-key tiles holding a key that some query of the lane may see (below
 // min(kv_len, Sk); with a window, not wholly below the first query's
 // reach).  With `pairs` (row block, KV head) pairs per lane:
-//   per = max(1, ceil(pairs * sum_b T_b / target), ceil(max_b T_b / n_cap))
-//         tiles per split,
+//   per = max(min_per, ceil(pairs * sum_b T_b / target), ceil(max_b T_b / n_cap))
+//         tiles per split (min_per 1 but for flash attention's key split),
 //   n_b = ceil(T_b / per) splits for each pair of lane b (so at most n_cap;
 //         n_cap = 1: no split, n_b = min(T_b, 1)),
 // and a split takes an even share, ceil(T_b / n_b) <= per tiles, of its
-// pair's.
+// pair's.  Under kAttention (flash attention), per then rises until the
+// items with tiles, pairs * sum_b n_b, fit target, where pairs * (busy
+// lanes) does.
 // Work items are numbered lane by lane, then pair, then split; a pair of an
 // idle lane (T_b = 0) still gets one item, which writes its zeros.  So a
 // launch has at most target + pairs * B items, the host's grid; blocks past
@@ -175,6 +177,8 @@ struct Plan {
   const int* kv_len;
   int B, Sq, Sk, window;    // window <= 0: none
   int pairs, target, n_cap;
+  int min_per = 1;          // fewest tiles a split takes (kAttention: flash attention's key
+                            // split sets 2)
 };
 
 // Keys [lo, hi) that some query of a lane with kv_len = len may see.
@@ -194,21 +198,42 @@ __device__ __forceinline__ int lane_tiles(const Plan& p, int len) {
 // reads the lengths of lanes i, i + 32, ..., and shuffles combine them, so
 // the plan costs one round of loads however many lanes there are.
 
+// kAttention (flash attention): per is at least p.min_per; and ceil(T_b /
+// per) rounds up per lane, so the items with tiles can pass target (a
+// second, short wave): per then rises until they fit, if one item per busy
+// lane and pair fits at all.  The decode kernels keep min_per 1, one pass.
+template <bool kAttention = false>
 __device__ __forceinline__ int plan_per(const Plan& p) {
   long long w = 0;
-  int most = 0;
+  int most = 0, busy = 0;
   for (int i = threadIdx.x & 31; i < p.B; i += 32) {
     const int t = lane_tiles(p, __ldg(p.kv_len + i));
     w += t;
     most = max(most, t);
+    if constexpr (kAttention) busy += t > 0;
   }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
     w += __shfl_xor_sync(0xffffffffu, w, o);
     most = max(most, __shfl_xor_sync(0xffffffffu, most, o));
+    if constexpr (kAttention) busy += __shfl_xor_sync(0xffffffffu, busy, o);
   }
   w *= p.pairs;
-  return (int)max(max(1LL, (w + p.target - 1) / p.target), (long long)cdiv(most, p.n_cap));
+  const long long least = kAttention ? p.min_per : 1;
+  int per = (int)max(max(least, (w + p.target - 1) / p.target), (long long)cdiv(most, p.n_cap));
+  if constexpr (kAttention) {
+    if (p.pairs * busy <= p.target) {
+      for (; per < most; ++per) {
+        int n = 0;
+        for (int i = threadIdx.x & 31; i < p.B; i += 32)
+          n += cdiv(lane_tiles(p, __ldg(p.kv_len + i)), per);
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) n += __shfl_xor_sync(0xffffffffu, n, o);
+        if (p.pairs * n <= p.target) break;
+      }
+    }
+  }
+  return per;
 }
 
 __device__ __forceinline__ int lane_splits(const Plan& p, int len, int per) {
@@ -223,8 +248,9 @@ struct PlanItem {
 
 // False past the last item.  32 lanes at a time: an inclusive scan of the
 // lanes' item counts, and a ballot finds the lane whose items hold v.
+template <bool kAttention = false>
 __device__ __forceinline__ bool plan_item(const Plan& p, int v, PlanItem& it) {
-  const int per = plan_per(p);
+  const int per = plan_per<kAttention>(p);
   const int lane = threadIdx.x & 31;
   int base = 0;
   for (int b0 = 0; b0 < p.B; b0 += 32) {
@@ -255,20 +281,6 @@ __device__ __forceinline__ bool plan_item(const Plan& p, int v, PlanItem& it) {
     base = __shfl_sync(0xffffffffu, end, 31);
   }
   return false;
-}
-
-// The splits n of lane b and the item of split 0 of its pair `pair` (what a
-// combine pass reads).
-__device__ __forceinline__ int plan_lane(const Plan& p, int b, int pair, int& slot0) {
-  const int per = plan_per(p);
-  int base = 0;
-  for (int i = threadIdx.x & 31; i < b; i += 32)
-    base += p.pairs * max(lane_splits(p, __ldg(p.kv_len + i), per), 1);
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) base += __shfl_xor_sync(0xffffffffu, base, o);
-  const int n = lane_splits(p, __ldg(p.kv_len + b), per);
-  slot0 = base + pair * max(n, 1);
-  return n;
 }
 
 // Tiles [begin, end) of split s of n over the T tiles from t0 (n <= 1: all).

@@ -2,7 +2,8 @@
 
 Each ``.cu`` source under ``src/repro_torch/csrc/`` is compiled on first use by
 ``nvcc`` for ``sm_90a`` into a shared library with a plain C interface and
-loaded with :mod:`ctypes`.  Libraries land in ``<repo>/build/repro_torch_kernels/``
+loaded with :mod:`ctypes` (or started early by :func:`start`, all together,
+and waited for at first use).  Libraries land in ``<repo>/build/repro_torch_kernels/``
 (resolved from this file, not from the working directory), named by a hash
 of the source and the shared headers so an edited kernel is rebuilt.  A
 failed build raises.
@@ -15,6 +16,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict, List, Sequence
 
@@ -27,6 +29,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "-lineinfo")
 
 _libs: Dict[str, ctypes.CDLL] = {}
+_pending: Dict[str, tuple] = {}        # name -> (library path, nvcc) from start()
+build_seconds: Dict[str, float] = {}   # nvcc wall time of each source built here
 _sm_counts: Dict[int, int] = {}
 _lock = threading.Lock()
 
@@ -60,27 +64,42 @@ def _start(name: str):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     log = out.with_suffix(".log").open("w")
+    t0 = time.time()
     proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", str(tmp),
                              str(CSRC / f"{name}.cu")],
                             stdout=log, stderr=subprocess.STDOUT)
     log.close()
-    return out, (proc, tmp)
+    return out, (proc, tmp, t0)
 
 
 def _finish(name: str, out: Path, pending) -> None:
     if pending is None:
         return
-    proc, tmp = pending
+    proc, tmp, t0 = pending
     rc = proc.wait()
     if rc != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu (rc={rc}):\n"
                            + out.with_suffix(".log").read_text())
+    build_seconds[name] = tmp.stat().st_mtime - t0    # the library's last write
     os.replace(tmp, out)
+
+
+def start(names: Sequence[str]) -> None:
+    """Start ``nvcc`` for every named source not built yet, all together,
+    and return at once: :func:`load` waits for a source's build when it
+    first needs the library (and raises if it failed)."""
+    with _lock:
+        for n in names:
+            if n not in _libs and n not in _pending:
+                out, pending = _start(n)
+                if pending is not None:
+                    _pending[n] = (out, pending)
 
 
 def build(names: Sequence[str]) -> List[Path]:
     """Compile every named source in parallel (one ``nvcc`` each, all
-    started together); returns the library paths.  Raises on any failure."""
+    started together); returns the library paths and records each build's
+    wall time in :data:`build_seconds`.  Raises on any failure."""
     started = [(n, *_start(n)) for n in names]
     errors = []
     for n, out, pending in started:      # wait for every nvcc, then raise
@@ -101,6 +120,8 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
+            if name in _pending:                 # started by start()
+                _finish(name, *_pending.pop(name))
             [path] = build([name])
             lib = ctypes.PyDLL(str(path))
             lib.repro_error_string.argtypes = [ctypes.c_int]

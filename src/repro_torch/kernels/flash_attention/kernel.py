@@ -10,33 +10,36 @@ Here GQA runs inside the kernel on un-repeated K/V, an optional per-row
 mask — and with ``ptab`` the keys are read through a page table from the
 layer's page pools, so the caller makes no gathered copy.
 
-Bound on the card: bytes at the serving contexts (each live K/V element is
-read once for its GQA group), operations only at long contexts with long
-chunks; at the paths' shapes (64-token chunks, ≤ 2048 keys) the time is
-latency: the longest chain of tile steps in one block and how many blocks
-have work.  Design: one block per 64 flattened (query, head-in-group) rows
-of one KV head, so each K/V tile serves the whole group.  bf16 runs on the
-tensor cores (``mma.sync`` m16n8k16, K/V tiles of 64 keys in a 2-stage
-``cp.async`` ring, P kept in registers for P·V as bf16 hi and lo halves,
-softmax and masks in f32);
-f32 runs on the CUDA cores (its 2e-5 tolerance rules out TF32).  Head dims
-64, 112 (zamba2) and 128 hold Q in registers; at 256 (gemma2) the
-accumulator takes 128 registers a thread, Q is read from shared memory
-each k-step and one block fits an SM, so the split plan's target follows
-the body's shared memory (:func:`repro_torch.kernels.split_plan.target`).
-A key split fills the card when few lanes have work: every block computes the
-same plan from ``kv_len`` on the card (``csrc/common.cuh``, shared with
-flash-decode; :mod:`repro_torch.kernels.split_plan` mirrors it), splits write
-partial (m, l, acc) rows in f32 to scratch allocated here, and a combine
-pass finishes them; with no split the kernel writes the output itself and
-no combine runs.  One call is one count in ``launches``.
+Bound on the card: operations at long sequences (whisper's encoder),
+bytes at the serving chunks (each live K/V element is read once for its
+GQA group); at the paths' 64-token chunks the time is latency: a block's
+chain of tile steps plus its fixed cost, and how many blocks have work.
+Design (``csrc/flash_attention.cu``): bf16 is a warp-specialised Hopper
+kernel, a producer warp streaming 64-key K/V tiles by TMA (a ``cp.async``
+gather for a tile that crosses ``kv_len`` and for page tables of pages
+under 8 rows) into a ring of swizzled shared-memory stages under mbarriers,
+and one or two consumer warpgroups of 64 flattened (query, head-in-group)
+rows of one KV head (:func:`launch_plan`: two when a KV head has more than
+64 rows), each running S = Q·Kᵀ as a ``wgmma`` from shared memory and O +=
+P·V as a ``wgmma`` with P from registers in bf16 hi and lo halves, softmax
+and masks in f32.  Two consumers split rows (128-row blocks) or, for a
+latency-bound launch, keys (:func:`block_plan`, which the card decides from
+``kv_len``).  f32 runs on the CUDA cores (its 2e-5 tolerance rules out
+TF32), 64 rows a block.  Head dims 64, 112 (zamba2), 128 and 256 (gemma2).
+A key split across blocks fills the card when few lanes have work: every
+block computes the same plan from ``kv_len`` on the card
+(``csrc/common.cuh``, shared with flash-decode, here under ``kAttention``;
+:mod:`repro_torch.kernels.split_plan` mirrors it), splits write partial
+(m, l, acc) rows in f32 to scratch allocated here, and the last split of a
+(row block, KV head) to arrive merges them and writes the rows, so a call
+is one launch and one count in ``launches``.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -49,8 +52,16 @@ launches = 0          # kernel launches since the last reset (main-path check)
 _NAME = "flash_attention"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 112, 128, 256)
-ROWS = 64             # flattened (query, head-in-group) rows per block
+WG_ROWS = 64          # rows of a bf16 consumer warpgroup (wgmma M); an f32 block's rows
+# blocks an SM: bf16 blocks of 384 threads at 168 registers (the source's
+# __launch_bounds__(kTcThreads, 1)) fill the register file alone; f32
+# blocks of 128 threads fit two
+BLOCKS_PER_SM = {torch.bfloat16: 1, torch.float32: plan.MAX_BLOCKS}
+MAX_SPLITS = 16       # most splits of a lane (csrc kMaxSplits): the last split of
+                      # a pair merges them all, weights in shared memory
+KEY_SPLIT_MIN_PER = 2  # a key split's fewest tiles a split (csrc kKeySplitMinPer)
 _fn = None
+_counters = {}        # (device, stream) -> zeroed int32 arrival counters
 
 
 def _launcher():
@@ -58,10 +69,10 @@ def _launcher():
     if _fn is None:
         lib = build.load(_NAME)
         fn = lib.flash_attention
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
-                       + [ctypes.c_int] * 10
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9
+                       + [ctypes.c_int] * 11
                        + [ctypes.c_float, ctypes.c_float]
-                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fn = (lib, fn)
     return _fn
@@ -69,10 +80,78 @@ def _launcher():
 
 @functools.cache
 def smem_bytes(dtype: torch.dtype, head_dim: int) -> int:
-    """Dynamic shared memory per block of the split kernel, as the CUDA
-    source lays it out (builds the library)."""
+    """Dynamic shared memory per block of the kernel, as the CUDA source
+    lays it out (builds the library)."""
     lib, _ = _launcher()
     return int(lib.flash_attention_smem_bytes(_DTYPE_CODE[dtype], head_dim))
+
+
+class LaunchPlan(NamedTuple):
+    consumers: int    # bf16 consumer warpgroups a block (f32: 1, unused)
+    pairs: int        # (row block, KV head) pairs a lane at 64-row blocks (the most)
+    target: int       # blocks the card's plan aims at
+    grid: int         # the host's bound on work items
+    n_cap: int        # most splits of a lane; 1: no split, no scratch
+    rows: int         # rows of a scratch slot: the largest block
+
+
+def launch_plan(dtype: torch.dtype, n_sm: int, smem: int, B: int, Sq: int,
+                H: int, Hkv: int, Sk: int) -> LaunchPlan:
+    """The host's part of the split plan for a launch on ``n_sm`` SMs of a
+    body of ``smem`` bytes a block: what sizes the grid (at the most pairs:
+    64-row blocks), the scratch (``grid·rows`` partial rows) and the
+    counters (``B·pairs``).  The card picks the bf16 blocks' rows itself
+    (:func:`block_plan`)."""
+    rows = Sq * (H // Hkv)
+    pairs = -(-rows // WG_ROWS) * Hkv
+    tgt = plan.target(n_sm, smem, BLOCKS_PER_SM[dtype])
+    consumers = 2 if dtype == torch.bfloat16 and rows > WG_ROWS else 1
+    big = consumers * WG_ROWS
+    n_cap = min(plan.max_splits(-(-rows // big) * Hkv, Sk, tgt), MAX_SPLITS)
+    return LaunchPlan(consumers, pairs, tgt, plan.grid_bound(pairs, B, tgt), n_cap, big)
+
+
+class BlockPlan(NamedTuple):
+    rows: int         # rows a block
+    key_split: bool   # the two consumer warpgroups take alternate tiles
+    pairs: int        # (row block, KV head) pairs a lane
+    min_per: int      # fewest tiles a split takes
+
+
+def block_plan(dtype: torch.dtype, Sq: int, H: int, Hkv: int,
+               lane_tiles, target: int, consumers: int = 2) -> BlockPlan:
+    """The blocks the card picks from ``kv_len`` (``key_split`` and
+    ``plan_item`` in ``csrc/flash_attention.cu``), given each lane's live
+    tiles and the launch's ``consumers`` (:func:`launch_plan`).  A bf16
+    launch of two consumer warpgroups splits keys, 64-row blocks whose two
+    warpgroups take alternate tiles (each split at least
+    :data:`KEY_SPLIT_MIN_PER`), when 128-row blocks would visit at most
+    ``target`` tiles in all; else it splits rows, 128-row blocks.  One
+    consumer (bf16) and f32: 64-row blocks."""
+    rows = Sq * (H // Hkv)
+    if dtype != torch.bfloat16 or consumers < 2:
+        return BlockPlan(WG_ROWS, False, -(-rows // WG_ROWS) * Hkv, 1)
+    ks = -(-rows // (2 * WG_ROWS)) * Hkv * sum(lane_tiles) <= target
+    r = WG_ROWS if ks else 2 * WG_ROWS
+    return BlockPlan(r, ks, -(-rows // r) * Hkv, KEY_SPLIT_MIN_PER if ks else 1)
+
+
+def _scratch(q: torch.Tensor, lp: LaunchPlan, B: int, D: int, stream: int):
+    """Pointers (part_acc, part_ml, counters) for a launch that may split:
+    partial acc [grid][rows][D] then (m, l) [grid][rows][2] in f32, and the
+    arrival counters of the B·pairs (lane, row block, KV head) pairs.  The
+    kernel leaves every counter at 0, so they are zeroed once, when
+    allocated, and shared by the calls on the stream."""
+    if lp.n_cap <= 1:
+        return (None, None, None), None
+    dev = q.get_device()
+    cnt = _counters.get((dev, stream))      # the default stream is 0 on every device
+    if cnt is None or cnt.numel() < B * lp.pairs:
+        cnt = _counters[dev, stream] = torch.zeros((max(B * lp.pairs, 256),),
+                                                   dtype=torch.int32, device=q.device)
+    n = lp.grid * lp.rows
+    part = torch.empty((n * (D + 2),), dtype=torch.float32, device=q.device)
+    return (part.data_ptr(), part.data_ptr() + n * D * 4, cnt.data_ptr()), part
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -134,23 +213,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     if B * Sq * H == 0:
         return out
-    n_sm = build.sm_count(dev)
-    pairs = -(-Sq * (H // Hkv) // ROWS) * Hkv
-    tgt = plan.target(n_sm, smem_bytes(dt, D))
-    grid = plan.grid_bound(pairs, B, tgt)
-    n_cap = plan.max_splits(pairs, Sk, tgt)
-    if n_cap > 1:          # partial acc [grid][ROWS][D], then (m, l) [grid][ROWS][2]
-        part = torch.empty((grid * ROWS * (D + 2),), dtype=torch.float32,
-                           device=q.device)
-        parts = (part.data_ptr(), part.data_ptr() + grid * ROWS * D * 4)
-    else:
-        parts = (None, None)
+    lp = launch_plan(dt, build.sm_count(dev), smem_bytes(dt, D), B, Sq, H, Hkv, Sk)
+    stream = build.stream(q)
+    parts, _scratch_buf = _scratch(q, lp, B, D, stream)
     lib, fn = _fn or _launcher()
     err = fn(code, *ptrs, None if ptab is None else ptab.data_ptr(),
              kv_len.data_ptr(), out.data_ptr(), *parts, B, Sq, Sk, H, Hkv, D,
-             shift, n_ptab, int(causal), -1 if window is None else int(window),
+             shift, n_ptab, ks[0] * ks[1], int(causal),
+             -1 if window is None else int(window),
              0.0 if softcap is None else float(softcap), 1.0 / math.sqrt(D),
-             tgt, n_cap, grid, build.stream(q))
+             lp.consumers, lp.target, lp.n_cap, lp.grid, stream)
     if err:
         build.check(lib, err, _NAME)
     launches += 1

@@ -10,8 +10,8 @@ wrappers the grid bound (and so the scratch size) and gives
 A lane with ``kv_len`` keys has ``T`` live tiles of ``TILE`` keys
 (:func:`lane_tiles`).  With ``pairs`` (row block, KV head) pairs per lane,
 ``target`` blocks (:func:`target`: one wave, from the kernel's shared
-memory) and at most ``n_cap`` splits a lane, ``per = max(1,
-⌈pairs·ΣT / target⌉, ⌈max T / n_cap⌉)`` tiles per split, and lane b gives
+memory and its blocks an SM) and at most ``n_cap`` splits a lane, ``per =
+max(min_per, ⌈pairs·ΣT / target⌉, ⌈max T / n_cap⌉)`` tiles per split, and lane b gives
 each pair ``⌈T_b / per⌉`` splits (:func:`split_plan`), which share its tiles
 evenly (:func:`split_tiles`).  Items are numbered lane
 by lane; a pair of an idle lane still gets one item, so a launch has at
@@ -25,16 +25,17 @@ TILE = 64             # keys per tile, the plan's unit
 SMEM_PER_SM = 233_472  # H100 (sm_90): 228 KiB of shared memory an SM
 SMEM_RESERVED = 1_024  # the runtime's shared memory reserved per block
 MAX_BLOCKS = 2         # 128 threads of up to 255 registers: two blocks
-                       # fill the 64 Ki-register file
+                       # fill the 64 Ki-register file (the decode kernels and
+                       # flash attention's f32 body)
 
 
-def target(n_sm: int, smem: int) -> int:
+def target(n_sm: int, smem: int, max_blocks: int = MAX_BLOCKS) -> int:
     """Blocks the plan aims at, one wave on a card of ``n_sm`` SMs, for a
     kernel of ``smem`` bytes of dynamic shared memory a block: as many
-    blocks as fit an SM by shared memory, at most MAX_BLOCKS (registers),
-    at least one."""
+    blocks as fit an SM by shared memory, at most ``max_blocks`` (what the
+    kernel's threads and registers allow an SM), at least one."""
     fit = SMEM_PER_SM // (smem + SMEM_RESERVED)
-    return n_sm * max(1, min(MAX_BLOCKS, fit))
+    return n_sm * max(1, min(max_blocks, fit))
 
 
 def lane_keys(kv_len: int, Sq: int, Sk: int,
@@ -62,16 +63,25 @@ def max_splits(pairs: int, Sk: int, target: int) -> int:
 
 
 def split_plan(pairs: int, lane_tiles: Sequence[int], target: int,
-               n_cap: Optional[int] = None) -> Tuple[int, List[int]]:
-    """(tiles per split, splits of each lane): ``per = max(1, ⌈pairs·ΣT /
+               n_cap: Optional[int] = None, min_per: int = 1,
+               one_wave: bool = False) -> Tuple[int, List[int]]:
+    """(tiles per split, splits of each lane): ``per = max(min_per, ⌈pairs·ΣT /
     target⌉, ⌈max T / n_cap⌉)`` and ``⌈T_b / per⌉`` splits for each pair of
-    lane b, so at most ``n_cap`` (default ⌈target / pairs⌉, which the first
+    lane b, so at most ``n_cap`` (default ⌈target / pairs⌉, which the second
     term already keeps to; ``n_cap = 1``: no split, 1 for a lane with
-    work).  Mirrors ``plan_per``/``lane_splits`` in ``csrc/common.cuh``."""
+    work).  ``min_per`` is 1 but for flash attention's key split (2: a tile
+    for each of a block's two consumer warpgroups).  ``one_wave`` (flash
+    attention): ``per`` then rises until the items with tiles, ``pairs·Σ
+    ⌈T_b / per⌉``, fit ``target``, where ``pairs`` × the busy lanes do.
+    Mirrors ``plan_per``/``lane_splits`` in ``csrc/common.cuh`` (``min_per``
+    and ``one_wave``: its ``kAttention``)."""
     if n_cap is None:
         n_cap = -(-target // pairs)
-    per = max(1, -(-pairs * sum(lane_tiles) // target),
-              -(-max(lane_tiles, default=0) // n_cap))
+    most = max(lane_tiles, default=0)
+    per = max(min_per, -(-pairs * sum(lane_tiles) // target), -(-most // n_cap))
+    if one_wave and pairs * sum(t > 0 for t in lane_tiles) <= target:
+        while per < most and pairs * sum(-(-t // per) for t in lane_tiles) > target:
+            per += 1
     return per, [-(-t // per) for t in lane_tiles]
 
 

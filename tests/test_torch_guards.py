@@ -219,8 +219,10 @@ DECODE_PLANS = {
 
 
 # dynamic shared memory per block of the bf16 bodies at D 128
-# (csrc TcLayout<128>::kBytes, as the card's build reports them)
-FA_D128_SMEM, DECODE_D128_SMEM = 87_040, 73_984
+# (csrc TcLayout<128>::kBytes, as the card's build reports them: flash
+# attention's two query tiles, a 4-stage K/V ring and barriers from a
+# 1024-byte aligned base)
+FA_D128_SMEM, DECODE_D128_SMEM = 165_120, 73_984
 
 
 @pytest.mark.parametrize("case", sorted(DECODE_PLANS))
@@ -252,24 +254,28 @@ def test_decode_split_plan_fills_the_card(case):
     assert hkv * sum(splits) <= items <= split_plan.grid_bound(hkv, len(kv_len), target)
 
 
-@pytest.mark.parametrize("smem,blocks", [
-    (46_080, 2),            # flash attention D 64: four fit, registers allow two
-    (76_800, 2),            # flash attention D 112
-    (FA_D128_SMEM, 2),
-    (168_960, 1),           # flash attention D 256
-    (65_280, 2),            # decode D 112
-    (DECODE_D128_SMEM, 2),
-    (143_616, 1),           # decode D 256
-    (232_448, 1),           # the most one block may take
+@pytest.mark.parametrize("smem,max_blocks,blocks", [
+    (83_200, 1, 1),         # flash attention bf16 D 64: two fit, registers allow one
+    (165_120, 1, 1),        # flash attention bf16 D 112 (as D 128: 128 columns)
+    (FA_D128_SMEM, 1, 1),
+    (197_888, 1, 1),        # flash attention bf16 D 256: a 2-stage ring
+    (65_280, 2, 2),         # decode D 112
+    (DECODE_D128_SMEM, 2, 2),
+    (143_616, 2, 1),        # decode D 256
+    (232_448, 2, 1),        # the most one block may take
 ])
-def test_split_plan_target_follows_shared_memory(smem, blocks):
+def test_split_plan_target_follows_shared_memory(smem, max_blocks, blocks):
     """The plan aims at one wave: as many blocks as fit an SM by shared
-    memory (two up to D 128, one at D 256), at most two (registers).  A
-    prefill chunk of one lane (16 live tiles, 16 pairs) splits into 16
-    single-tile splits at 264 blocks and 8 two-tile splits at 132, and a
-    decode of spread lengths keeps within the host's grid."""
+    memory, at most what the kernel's registers allow (flash attention's
+    bf16 blocks of 384 threads at 168 registers: one; the decode kernels'
+    128-thread blocks: two).  A prefill chunk of one lane (16 live tiles, 16
+    pairs) splits into 16 single-tile splits at 264 blocks and 8 two-tile
+    splits at 132, and a decode of spread lengths keeps within the host's
+    grid."""
     want = 132 * blocks
-    assert split_plan.target(132, smem) == want
+    assert split_plan.target(132, smem, max_blocks) == want
+    if max_blocks == split_plan.MAX_BLOCKS:
+        assert split_plan.target(132, smem) == want
     tiles = [fa_kernel.lane_tiles(n, 64, 2048, None) for n in [1024] + [0] * 7]
     per, splits = split_plan.split_plan(16, tiles, want)
     assert split_plan.max_splits(16, 2048, want) == min(32, -(-want // 16))
@@ -306,17 +312,68 @@ def test_attention_launchers_take_the_sources_head_dims():
     assert fd_kernel._fn is None and fd_kernel._contig_fn is None
 
 
+def test_flash_attention_bf16_runs_the_wgmma_body_alone():
+    """``flash_attention.cu``: the bf16 launch dispatches the
+    warp-specialised wgmma body at every head dim, fed by TMA under
+    mbarriers, its combine folded into the split (one kernel a call); the
+    mma.sync body and the separate combine kernel are gone; the f32 body
+    stays on the CUDA cores; the source's limits match the wrapper's."""
+    src = (build.CSRC / "flash_attention.cu").read_text()
+    launch = src[src.index("cudaError_t launch(const Args& a"):]
+    launch = launch[:launch.index("\n}\n")]
+    assert "flash_attention_wgmma_kernel<D><<<" in launch
+    assert "flash_attention_simt_kernel<D><<<" in launch
+    assert launch.count("<<<") == 2            # one kernel a call, by dtype
+    for gone in ("flash_attention_tc_kernel", "flash_attention_combine_kernel",
+                 "mma_bf16", "ldmatrix"):
+        assert gone not in src, gone
+    body = src[src.index("flash_attention_wgmma_kernel(const Args a"):]
+    body = body[:body.index("\n}\n")]
+    for used in ("tma_load_3d", "mbar_wait", "mbar_expect_tx", "wgmma_m64n64k16_bf16_kk",
+                 "wgmma_pv", "reg_alloc", "reg_dealloc", "combine_if_last",
+                 "cp_async_mbar_arrive"):
+        assert used in body, used
+    for name, value in (("kMaxSplits", fa_kernel.MAX_SPLITS),
+                        ("kKeySplitMinPer", fa_kernel.KEY_SPLIT_MIN_PER)):
+        assert re.search(rf"constexpr int {name} = (\d+);", src).group(1) == str(value)
+    assert "__launch_bounds__(kTcThreads, 1)" in src
+    assert fa_kernel.BLOCKS_PER_SM[torch.bfloat16] == 1
+    hopper = (build.CSRC / "hopper.cuh").read_text()
+    for wrapper in ("wgmma_m64n64k16_bf16_kk", "wgmma_m64n64k16_bf16_rs",
+                    "wgmma_m64n128k16_bf16_rs", "encode_bf16_heads", "prefetch_tensormap"):
+        assert f" {wrapper}(" in hopper, wrapper
+
+
 def test_flash_attention_split_plan_fills_the_card():
-    # a serving prefill chunk: one lane of 16 live tiles (kv_len 1024, Sq 64),
-    # 12 (row block, KV head) pairs with work, spread over 132 SMs
-    target = split_plan.target(132, FA_D128_SMEM)
+    bf, n_sm = torch.bfloat16, 132
+    target = split_plan.target(n_sm, FA_D128_SMEM, fa_kernel.BLOCKS_PER_SM[bf])
+    assert target == n_sm
+    # a serving prefill chunk: one lane of 16 live tiles (kv_len 1024, Sq 64,
+    # qwen2's 12 heads on 2 KV heads).  At 128 rows it would be 6 pairs and
+    # 96 tile visits, under one a block: the keys are split, 64-row blocks
+    # (12 pairs) whose two warpgroups take alternate tiles, 2 tiles a split
     tiles = [fa_kernel.lane_tiles(n, 64, 2048, None) for n in [1024] + [0] * 7]
     assert tiles == [16] + [0] * 7
-    per, splits = split_plan.split_plan(12, tiles, target)
-    assert per == 1 and splits == [16] + [0] * 7
-    assert 12 * sum(splits) >= 132
-    assert split_plan.max_splits(12, 2048, target) == 22 >= max(splits)
-    # a grid that already fills the card gets one split and no combine
+    bp = fa_kernel.block_plan(bf, 64, 12, 2, tiles, target)
+    assert bp == fa_kernel.BlockPlan(64, True, 12, 2)
+    lp = fa_kernel.launch_plan(bf, n_sm, FA_D128_SMEM, 8, 64, 12, 2, 2048)
+    assert lp.consumers == 2 and lp.pairs == 12 and lp.n_cap == fa_kernel.MAX_SPLITS
+    per, splits = split_plan.split_plan(bp.pairs, tiles, target, lp.n_cap, bp.min_per, True)
+    assert per == 2 and splits == [8] + [0] * 7
+    assert 12 * sum(splits) <= target
+    # the spread lengths of the timed qwen2 shape split rows (128-row
+    # blocks, 6 pairs), and one_wave raises per from 6 to 7 so that the
+    # items with tiles fit one wave (6 * 24 = 144 would pass it)
+    kv = [64, 65, 100, 513, 1024, 1500, 2000, 2048]
+    tiles = [fa_kernel.lane_tiles(n, 64, 2048, None) for n in kv]
+    bp = fa_kernel.block_plan(bf, 64, 12, 2, tiles, target)
+    assert bp == fa_kernel.BlockPlan(128, False, 6, 1)
+    assert split_plan.split_plan(6, tiles, target, lp.n_cap)[0] == 6
+    per, splits = split_plan.split_plan(6, tiles, target, lp.n_cap, 1, True)
+    assert per == 7 and splits == [1, 1, 1, 2, 3, 4, 5, 5] and 6 * sum(splits) <= target
+    # f32 keeps 64-row blocks and two an SM; a grid that already fills the
+    # card gets one split
+    assert fa_kernel.block_plan(torch.float32, 64, 12, 2, tiles, 264).rows == 64
     assert split_plan.max_splits(600, 2048, target) == 1
     assert split_plan.split_plan(600, [32] * 8, target)[1] == [1] * 8
     assert split_plan.split_plan(96, [8] * 8, target, n_cap=1)[1] == [1] * 8
@@ -324,12 +381,73 @@ def test_flash_attention_split_plan_fills_the_card():
     assert split_plan.split_plan(12, [3, 0], target) == (1, [3, 0])
     for pairs in (1, 12, 32, 96):
         lanes = [0, 1, 5, 16, 32]
-        per, splits = split_plan.split_plan(pairs, lanes, target)
-        assert all(n <= t for n, t in zip(splits, lanes))
-        assert all(n <= split_plan.max_splits(pairs, 2048, target) for n in splits)
+        for one_wave in (False, True):
+            per, splits = split_plan.split_plan(pairs, lanes, target, None, 1, one_wave)
+            assert all(n <= t for n, t in zip(splits, lanes))
+            assert all(n <= split_plan.max_splits(pairs, 2048, target) for n in splits)
     # the live range: a window drops the tiles below the first query's reach
     assert fa_kernel.lane_tiles(1024, 64, 2048, 256) == 16 - 705 // 64
     assert fa_kernel.lane_tiles(3000, 64, 2048, None) == 32
+
+
+@pytest.mark.parametrize("dtype,Sq,H,Hkv,kv,consumers,key_split,rows", [
+    (torch.bfloat16, 64, 12, 2, [1024] + [0] * 7, 2, True, 64),    # serving chunk
+    (torch.bfloat16, 64, 6, 1, [512], 2, True, 64),                # qwen2 tp 2 shard
+    (torch.bfloat16, 64, 12, 2, [2048] * 8, 2, False, 128),        # a full batch
+    (torch.bfloat16, 1500, 6, 6, [1500] * 4, 2, False, 128),       # whisper's encoder
+    (torch.bfloat16, 64, 32, 32, [2048] * 8, 1, False, 64),        # zamba2: one consumer
+    (torch.bfloat16, 64, 16, 16, [512], 1, False, 64),             # zamba2 tp 2 shard
+    (torch.float32, 64, 12, 2, [1024] + [0] * 7, 1, False, 64),    # f32: 64-row blocks
+])
+def test_flash_attention_block_plan_mirrors_the_card(dtype, Sq, H, Hkv, kv, consumers,
+                                                     key_split, rows):
+    """The card's choice of blocks (``key_split``/``plan_item`` in
+    ``csrc/flash_attention.cu``), mirrored: bf16 launches run two consumer
+    warpgroups when a KV head has more than 64 rows; two consumers split
+    keys, 64-row blocks of alternate tiles and at least 2 tiles a split,
+    when 128-row blocks would visit at most ``target`` tiles, else rows;
+    one consumer and f32 keep 64-row blocks."""
+    lp = fa_kernel.launch_plan(dtype, 132, 165_120, len(kv), Sq, H, Hkv, max(kv))
+    assert lp.consumers == consumers
+    tiles = [fa_kernel.lane_tiles(n, Sq, max(kv), None) for n in kv]
+    bp = fa_kernel.block_plan(dtype, Sq, H, Hkv, tiles, 132, lp.consumers)
+    assert (bp.key_split, bp.rows) == (key_split, rows)
+    assert bp.pairs == -(-Sq * (H // Hkv) // rows) * Hkv
+    assert bp.min_per == (fa_kernel.KEY_SPLIT_MIN_PER if key_split else 1)
+
+
+@pytest.mark.parametrize("dtype,B,Sq,H,Hkv,D,Sk", [
+    (torch.bfloat16, 8, 64, 12, 2, 128, 2048),
+    (torch.bfloat16, 1, 64, 6, 1, 128, 512),
+    (torch.bfloat16, 8, 64, 16, 8, 256, 2048),
+    (torch.float32, 8, 16, 32, 32, 112, 2048),
+])
+def test_flash_attention_scratch_covers_every_plan(dtype, B, Sq, H, Hkv, D, Sk, monkeypatch):
+    """The folded combine's scratch and counters, as the wrapper sizes them
+    (:func:`kernel._scratch`, allocated here on the CPU): a slot of the
+    largest block's rows for every item of the host's grid bound, which
+    holds every item of either split (the most pairs: 64-row blocks), and
+    a zeroed arrival counter for every (lane, row block, KV head) pair."""
+    monkeypatch.setattr(fa_kernel, "_counters", {})
+    lp = fa_kernel.launch_plan(dtype, 132, 165_120, B, Sq, H, Hkv, Sk)
+    pairs64 = -(-Sq * (H // Hkv) // 64) * Hkv
+    assert lp.pairs == pairs64 and lp.grid == split_plan.grid_bound(pairs64, B, lp.target)
+    assert 1 < lp.n_cap <= fa_kernel.MAX_SPLITS
+    assert lp.rows == 64 * lp.consumers
+    q = torch.zeros(B, Sq, H, D, dtype=dtype)
+    (acc, ml, cnt), part = fa_kernel._scratch(q, lp, B, D, 0)
+    assert part.numel() == lp.grid * lp.rows * (D + 2) and part.dtype == torch.float32
+    assert ml - acc == lp.grid * lp.rows * D * 4
+    counters = fa_kernel._counters[(q.get_device(), 0)]
+    assert counters.numel() >= B * lp.pairs and int(counters.abs().sum()) == 0
+    assert cnt == counters.data_ptr()
+    # every item of every plan the card may make fits the grid
+    for tiles in ([fa_kernel.lane_tiles(Sk, Sq, Sk, None)] * B, [1] + [0] * (B - 1)):
+        bp = fa_kernel.block_plan(dtype, Sq, H, Hkv, tiles, lp.target, lp.consumers)
+        _, splits = split_plan.split_plan(bp.pairs, tiles, lp.target, lp.n_cap, bp.min_per,
+                                          True)
+        assert split_plan.work_items(bp.pairs, splits) <= lp.grid
+        assert B * bp.pairs <= counters.numel()
 
 
 def test_flash_attention_paged_launcher_refuses_bad_inputs():
