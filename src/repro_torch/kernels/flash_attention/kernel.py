@@ -43,6 +43,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch import telemetry
 from repro_torch.kernels import build
 from repro_torch.kernels import split_plan as plan
 from repro_torch.kernels.split_plan import TILE, lane_tiles  # noqa: F401
@@ -50,6 +51,7 @@ from repro_torch.kernels.split_plan import TILE, lane_tiles  # noqa: F401
 launches = 0          # kernel launches since the last reset (main-path check)
 
 _NAME = "flash_attention"
+_SPAN_ATTRS = {"kernel": _NAME}     # a kernel.launch span's attributes
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 112, 128, 256)
 WG_ROWS = 64          # rows of a bf16 consumer warpgroup (wgmma M); an f32 block's rows
@@ -217,12 +219,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     stream = build.stream(q)
     parts, _scratch_buf = _scratch(q, lp, B, D, stream)
     lib, fn = _fn or _launcher()
+    rec = telemetry.REC
+    if rec is not None:
+        span = rec.begin("kernel.launch", attrs=_SPAN_ATTRS)
     err = fn(code, *ptrs, None if ptab is None else ptab.data_ptr(),
              kv_len.data_ptr(), out.data_ptr(), *parts, B, Sq, Sk, H, Hkv, D,
              shift, n_ptab, ks[0] * ks[1], int(causal),
              -1 if window is None else int(window),
              0.0 if softcap is None else float(softcap), 1.0 / math.sqrt(D),
              lp.consumers, lp.target, lp.n_cap, lp.grid, stream)
+    if rec is not None:
+        rec.end(span)
     if err:
         build.check(lib, err, _NAME)
     launches += 1

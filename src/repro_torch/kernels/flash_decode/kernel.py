@@ -58,6 +58,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch import telemetry
 from repro_torch.kernels import build
 from repro_torch.kernels import split_plan as plan
 
@@ -65,6 +66,8 @@ launches = 0          # paged kernel launches since the last reset
 contig_launches = 0   # contiguous kernel launches since the last reset
 
 _NAME = "paged_flash_decode"
+_SPAN_ATTRS = {"kernel": _NAME}     # a kernel.launch span's attributes
+_CONTIG_SPAN_ATTRS = {"kernel": "flash_decode"}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 112, 128, 256)
 MAX_GROUP = 16        # query heads per KV head: one m16 fragment
@@ -205,10 +208,15 @@ def paged_flash_decode(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
     stream = build.stream(q)
     tgt, n_cap, grid, part, parts = _scratch(q, B, H, Hkv, n_ptab * page, stream)
     lib, fn = _fn or _launcher()
+    rec = telemetry.REC
+    if rec is not None:
+        span = rec.begin("kernel.launch", attrs=_SPAN_ATTRS)
     err = fn(code, q.data_ptr(), kp.data_ptr(), vp.data_ptr(), ptab.data_ptr(),
              kv_len.data_ptr(), out.data_ptr(), *parts, B, H, Hkv, q.shape[2],
              page.bit_length() - 1, n_ptab, -1 if window is None else int(window),
              1.0 / math.sqrt(q.shape[2]), 0.0 if softcap is None else float(softcap), tgt, n_cap, grid, stream)
+    if rec is not None:
+        rec.end(span)
     if err:
         build.check(lib, err, _NAME)
     launches += 1
@@ -234,9 +242,14 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     stream = build.stream(q)
     tgt, n_cap, grid, part, parts = _scratch(q, B, H, Hkv, S, stream)
     lib, fn = _contig_fn or _contig_launcher()
+    rec = telemetry.REC
+    if rec is not None:
+        span = rec.begin("kernel.launch", attrs=_CONTIG_SPAN_ATTRS)
     err = fn(code, q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
              out.data_ptr(), *parts, B, H, Hkv, q.shape[2], S,
              1.0 / math.sqrt(q.shape[2]), 0.0 if softcap is None else float(softcap), tgt, n_cap, grid, stream)
+    if rec is not None:
+        rec.end(span)
     if err:
         build.check(lib, err, "flash_decode")
     contig_launches += 1

@@ -32,12 +32,14 @@ import ctypes
 
 import torch
 
+from repro_torch import telemetry
 from repro_torch.kernels import build
 from repro_torch.kernels.moe_gmm import plan
 
 launches = 0          # kernel calls since the last reset (main-path check)
 
 _NAME = "moe_gmm"
+_SPAN_ATTRS = {"kernel": _NAME}     # a kernel.launch span's attributes
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 ALIGN = 64            # D and F must be multiples of the kernel's 64-column tile
 _fn = None
@@ -100,9 +102,14 @@ def moe_gmm(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
         return y
     h = torch.empty((E, C, F), dtype=x.dtype, device=x.device)
     lib, fn = _launcher()
+    rec = telemetry.REC
+    if rec is not None:
+        span = rec.begin("kernel.launch", attrs=_SPAN_ATTRS)
     err = fn(_DTYPE_CODE[x.dtype], x.data_ptr(), x.stride(0), w_gate.data_ptr(),
              w_up.data_ptr(), w_down.data_ptr(), h.data_ptr(), y.data_ptr(),
              E, C, D, F, build.stream(x))
+    if rec is not None:
+        rec.end(span)
     build.check(lib, err, _NAME)
     launches += 1
     return y

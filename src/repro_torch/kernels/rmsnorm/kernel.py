@@ -23,11 +23,13 @@ import ctypes
 
 import torch
 
+from repro_torch import telemetry
 from repro_torch.kernels import build
 
 launches = 0          # kernel launches since the last reset (main-path check)
 
 _NAME = "rmsnorm"
+_SPAN_ATTRS = {"kernel": _NAME}     # a kernel.launch span's attributes
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _fn = None
 
@@ -66,9 +68,14 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
     if rows == 0:
         return out
     lib, fn = _fn or _launcher()
+    rec = telemetry.REC
+    if rec is not None:
+        span = rec.begin("kernel.launch", attrs=_SPAN_ATTRS)
     err = fn(code, x.data_ptr(), scale.data_ptr(),
              out.data_ptr(), rows, D, eps,
              build.stream(x))
+    if rec is not None:
+        rec.end(span)
     if err:
         build.check(lib, err, _NAME)
     launches += 1

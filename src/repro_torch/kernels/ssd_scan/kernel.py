@@ -24,11 +24,13 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch import telemetry
 from repro_torch.kernels import build
 
 launches = 0          # kernel launches since the last reset (main-path check)
 
 _NAME = "ssd_scan"
+_SPAN_ATTRS = {"kernel": _NAME}     # a kernel.launch span's attributes
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 SHAPES = ((64, 128), (64, 64))   # (head_dim p, d_state n) the kernel is built for
 CHUNK = 64            # positions per round of the bf16 body (csrc: tc::kChunk)
@@ -139,11 +141,16 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             return y, fin.zero_()
         return y, fin.copy_(initial_state)
     lib, fn = _launcher()
+    rec = telemetry.REC
+    if rec is not None:
+        span = rec.begin("kernel.launch", attrs=_SPAN_ATTRS)
     err = fn(_DTYPE_CODE[x.dtype], x.data_ptr(), dt.data_ptr(), A.data_ptr(),
              B.data_ptr(), C.data_ptr(),
              0 if initial_state is None else initial_state.data_ptr(),
              y.data_ptr(), fin.data_ptr(), b, s, h, p, n,
              build.stream(x))
+    if rec is not None:
+        rec.end(span)
     build.check(lib, err, _NAME)
     launches += 1
     return y, fin

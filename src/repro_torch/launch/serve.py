@@ -26,6 +26,15 @@ one evolution cycle through the evaluation ladder (analytic screen → shadow
 replay), a canary-ticketed publish, and a planted regression that is
 caught and rolled back.  It runs on the deterministic shadow data plane
 and serves nothing on any device.
+
+``--trace`` records the engine's spans and counters while the pool serves
+(:mod:`repro_torch.telemetry`) and prints one table at exit: each span
+name's count, total and self milliseconds (a span's self time leaves out
+its child spans), most self time first, then the counters.  With
+``--resize`` it holds ``pool.reconfigure`` and its ``pool.migrate`` /
+``pool.drain`` parts, so the reconfiguration stall shows by part::
+
+    python -m repro_torch.launch.serve --device cpu --resize --reconfig migrate --trace
 """
 from __future__ import annotations
 
@@ -33,6 +42,7 @@ import argparse
 import time
 from typing import List, Optional
 
+from repro_torch import telemetry
 from repro_torch.configs import list_archs
 from repro_torch.core.plan import Plan, ReplicaGroup
 from repro_torch.core.policy import render_policy
@@ -135,6 +145,9 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="replay a seeded fault schedule (replica kills + "
                          "stragglers) against the pool while it serves and "
                          "print each FailureReport (recovery domain)")
+    ap.add_argument("--trace", action="store_true",
+                    help="record the engine's spans and counters and print "
+                         "them by name at exit")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where the model runs (cuda: the card and its "
                          "kernels; cpu: the plain PyTorch versions)")
@@ -144,6 +157,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         guarded_demo(args.guarded_steps)
         return 0
 
+    if args.trace:
+        telemetry.enable()
     backend = make_torch_backend(args.arch, seed=0, device=args.device,
                                  max_seq_len=128, slots_cap=args.slots,
                                  max_replicas_per_group=args.replicas)
@@ -232,6 +247,8 @@ def main(argv: Optional[List[str]] = None) -> int:
               f"drain {rep2.drain_wall_s * 1e3:.1f}ms)")
         done2 = backend.pool.run_until_drained()
         print(f"post-resize: served {len(done2)} carried/queued requests")
+    if args.trace:
+        print(telemetry.table(telemetry.disable()))
     return 0
 
 

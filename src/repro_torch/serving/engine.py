@@ -27,6 +27,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import telemetry
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.policy import KVCachePolicy, RequestPolicy
 from repro_torch.device import DeviceLike, resolve_device
@@ -37,6 +38,28 @@ EOS_DEFAULT = -1        # disabled unless the tokenizer defines one
 
 # candidate prefill chunk sizes (powers of two, greedy binary decomposition)
 _CHUNK_CANDIDATES = (256, 128, 64, 32, 16, 8, 4, 2, 1)
+
+
+_DECODE = {"kind": "decode", "chunk": 1}     # a decode engine.dispatch span's attributes
+
+
+def _dispatched(rec: telemetry.Record, span: int, kind: str, chunk: int) -> None:
+    """Close an ``engine.dispatch`` span and count the dispatch."""
+    rec.end(span)
+    rec.count(f"dispatch.{kind}")
+    if kind == "prefill":
+        rec.count("tokens.prefilled", chunk)
+
+
+def _read_token(rec: Optional[telemetry.Record], tokens: torch.Tensor,
+                lane: int) -> int:
+    """One lane's produced token, device → host (an ``engine.readback``)."""
+    if rec is None:
+        return int(tokens[lane])
+    span = rec.begin("engine.readback")
+    tok = int(tokens[lane])
+    rec.end(span)
+    return tok
 
 
 class DrainStallError(RuntimeError):
@@ -318,7 +341,6 @@ class Engine(RequestSchedulingMixin):
         self.waiting: List[Request] = []
         self.active: Dict[int, RequestState] = {}       # slot -> state
         self.finished: List[RequestState] = []
-        self.steps = 0
         self.dispatches = 0          # model-step invocations (perf metric)
 
         if not self.paged:
@@ -363,15 +385,22 @@ class Engine(RequestSchedulingMixin):
         """One paged model dispatch; returns the greedy next token per lane
         as a device tensor (the caller fetches it when it needs the value)."""
         dev = self.device
+        rec = telemetry.REC
+        if rec is not None:
+            span = rec.begin("dispatch.inputs")
         with torch.inference_mode():
-            logits, _ = lm.paged_step(
-                self.params, self.cfg, self.cache,
-                torch.from_numpy(tokens).to(dev),
-                torch.from_numpy(positions).to(dev),
-                torch.from_numpy(self._ptab).to(dev),
-                torch.from_numpy(active).to(dev),
-                page_size=self.page_size, last_only=True)
+            inputs = (torch.from_numpy(tokens).to(dev),
+                      torch.from_numpy(positions).to(dev),
+                      torch.from_numpy(self._ptab).to(dev),
+                      torch.from_numpy(active).to(dev))
+            if rec is not None:
+                rec.end(span)
+                span = rec.begin("dispatch.launch")
+            logits, _ = lm.paged_step(self.params, self.cfg, self.cache, *inputs,
+                                      page_size=self.page_size, last_only=True)
             next_tok = torch.argmax(logits[:, -1, :], dim=-1)
+        if rec is not None:
+            rec.end(span)
         self.dispatches += 1
         return next_tok
 
@@ -384,15 +413,23 @@ class Engine(RequestSchedulingMixin):
         rows (None: all).  Returns the greedy next token per row as a
         device tensor."""
         dev = self.device
+        rec = telemetry.REC
+        if rec is not None:
+            span = rec.begin("dispatch.inputs")
         with torch.inference_mode():
+            tokens_d = torch.from_numpy(tokens).to(dev)
+            positions_d = torch.from_numpy(positions).to(dev)
+            write_d = None if write is None else torch.from_numpy(write).to(dev)
+            if rec is not None:
+                rec.end(span)
+                span = rec.begin("dispatch.launch")
             lm.wipe_slots_(self.cache, reset)
-            logits, _ = lm.step_with_cache(
-                self.params, self.cfg, self.cache,
-                torch.from_numpy(tokens).to(dev),
-                torch.from_numpy(positions).to(dev), rows=rows,
-                write=None if write is None else torch.from_numpy(write).to(dev),
-                last_only=True)
+            logits, _ = lm.step_with_cache(self.params, self.cfg, self.cache,
+                                           tokens_d, positions_d, rows=rows,
+                                           write=write_d, last_only=True)
             next_tok = torch.argmax(logits[:, -1, :], dim=-1)
+        if rec is not None:
+            rec.end(span)
         self.dispatches += 1
         return next_tok
 
@@ -541,10 +578,15 @@ class Engine(RequestSchedulingMixin):
     def _retire(self, slot: int, st: RequestState) -> None:
         st.done = True
         st.finish_time = time.monotonic()
+        rec = telemetry.REC
+        if rec is not None:
+            span = rec.begin("engine.retire", st.finish_time, rid=st.request.rid)
         self.finished.append(st)
         del self.active[slot]
         if self.paged:
             self._release_pages(slot, st)
+        if rec is not None:
+            rec.end(span)
 
     def release_all_pages(self) -> int:
         """Drop every page reference this engine holds — active slots and
@@ -697,6 +739,10 @@ class Engine(RequestSchedulingMixin):
     def _prefill_into_slot(self, req: Request, slot: int) -> None:
         """Write the prompt's KV into the slot's pages and produce the first
         generated token (greedy logits at the last prompt position)."""
+        rec = telemetry.REC
+        if rec is not None:
+            span = rec.begin("engine.admit", rid=req.rid)
+            saved = self.prefix_tokens_saved
         st = RequestState(req, slot)
         self.active[slot] = st
         prompt = req.prompt or [0]
@@ -710,10 +756,14 @@ class Engine(RequestSchedulingMixin):
         else:
             last = self._prefill_chunks(st, prompt)
         st.generated.append(last)
-        st.first_token_time = time.monotonic()
-        if req.first_token_time is not None:
-            st.first_token_time = req.first_token_time
+        now = time.monotonic()
+        st.first_token_time = (now if req.first_token_time is None
+                               else req.first_token_time)
         st.prior_generated = req.prior_generated
+        if rec is not None:
+            rec.end(span, now, {"prompt": len(req.prompt),
+                                "matched": self.prefix_tokens_saved - saved,
+                                "chunks": st.prefill_dispatches})
 
     def _prefill_chunks(self, st: RequestState, prompt: List[int]) -> int:
         """Contiguous prefill in descending power-of-two chunks, one
@@ -721,6 +771,7 @@ class Engine(RequestSchedulingMixin):
         first chunk wipes the slot's previous occupant.  Past a rolling
         ring's length only single tokens are sound (the JAX rule)."""
         slot = st.slot
+        rec = telemetry.REC
         prompt_arr = np.asarray(prompt, np.int32)
         off, last = 0, None
         remaining = len(prompt)
@@ -729,20 +780,27 @@ class Engine(RequestSchedulingMixin):
                 if (self._rolling_limit is not None and c > 1
                         and off + c > self._rolling_limit):
                     break
+                if rec is not None:
+                    span = rec.begin("engine.dispatch", attrs={"kind": "prefill", "chunk": c})
                 last = self._contig_exec(
                     prompt_arr[None, off:off + c],
                     np.arange(off, off + c, dtype=np.int32)[None],
                     rows=(slot, slot + 1), reset=(slot,) if off == 0 else ())
+                if rec is not None:
+                    _dispatched(rec, span, "prefill", c)
                 st.prefill_dispatches += 1
                 off += c
                 remaining -= c
         st.position = off
-        return int(last[0])                 # device → host once, after the loop
+        return _read_token(rec, last, 0)    # device → host once, after the loop
 
     def _advance_slot(self, st: RequestState, token: int,
                       wipe_slot: bool = False) -> int:
         """Per-token prefill (``chunked_prefill=False``): one all-slot
         dispatch per prompt token that keeps only this slot's update."""
+        rec = telemetry.REC
+        if rec is not None:
+            span = rec.begin("engine.dispatch", attrs={"kind": "prefill", "chunk": 1})
         tokens = np.zeros((self.n_slots, 1), np.int32)
         tokens[st.slot, 0] = token
         positions = np.zeros((self.n_slots, 1), np.int32)
@@ -751,8 +809,10 @@ class Engine(RequestSchedulingMixin):
         next_tok = self._contig_exec(tokens, positions,
                                      write=np.array([st.slot], np.int64),
                                      reset=(st.slot,) if wipe_slot else ())
+        if rec is not None:
+            _dispatched(rec, span, "prefill", 1)
         st.position += 1
-        return int(next_tok[st.slot])
+        return _read_token(rec, next_tok, st.slot)
 
     def _paged_prefill(self, st: RequestState, prompt: List[int]) -> int:
         """Prefill into pages.  A resident prompt prefix (full pages, capped
@@ -760,12 +820,18 @@ class Engine(RequestSchedulingMixin):
         index; only the remainder is prefilled.  Inactive lanes' writes land
         in the trash page."""
         slot = st.slot
+        rec = telemetry.REC
         pages: List[int] = []
         matched = 0
         if self.prefix_cache_enabled:
-            pages, matched = self.prefix_index.match(prompt, time.monotonic())
+            now = time.monotonic()
+            if rec is not None:
+                span = rec.begin("engine.prefix_match", now, rid=st.request.rid)
+            pages, matched = self.prefix_index.match(prompt, now)
             for pid in pages:            # the request's own share of each page
                 self.page_pool.ref(pid)
+            if rec is not None:
+                rec.end(span)
         self._slot_pages[slot] = list(pages)
         self._ptab[slot, :] = 0
         self._ptab[slot, :len(pages)] = pages
@@ -777,34 +843,47 @@ class Engine(RequestSchedulingMixin):
         remaining = len(prompt) - matched
         for c in (self._chunk_sizes if self.chunked_prefill else (1,)):
             while remaining >= c:
+                if rec is not None:
+                    span = rec.begin("engine.dispatch", attrs={"kind": "prefill", "chunk": c})
                 self._ensure_pages(slot, off + c)
                 tokens = np.zeros((self.n_slots, c), np.int32)
                 positions = np.zeros((self.n_slots, c), np.int32)
                 tokens[slot] = prompt_arr[off:off + c]
                 positions[slot] = np.arange(off, off + c, dtype=np.int32)
                 last = self._paged_exec(tokens, positions, active)
+                if rec is not None:
+                    _dispatched(rec, span, "prefill", c)
                 st.prefill_dispatches += 1
                 off += c
                 remaining -= c
         st.position = off
-        return int(last[slot])              # device → host once, after the loop
+        return _read_token(rec, last, slot)  # device → host once, after the loop
 
     # ------------------------------------------------------------------ #
     def step(self) -> int:
         """One engine iteration; returns number of tokens produced."""
         t0 = time.monotonic()
+        rec = telemetry.REC
+        if rec is not None:
+            step_span = rec.begin("engine.step", t0)
         self._maybe_preempt()
         free = self.free_slots()
+        admitted = 0
         for slot, req in zip(free, self._select_admissions(len(free))):
             self._prefill_into_slot(req, slot)
+            admitted += 1
             st = self.active[slot]
             if (len(st.generated) >= req.max_new_tokens
                     or st.generated[-1] == req.eos_id):
                 self._retire(slot, st)
 
         if not self.active:
+            if rec is not None:
+                rec.end(step_span, attrs={"admitted": admitted, "live": 0})
             return 0
 
+        if rec is not None:
+            span = rec.begin("engine.dispatch", attrs=_DECODE)
         tokens = np.zeros((self.n_slots, 1), np.int32)
         positions = np.zeros((self.n_slots, 1), np.int32)
         active = np.zeros((self.n_slots,), bool)
@@ -821,7 +900,12 @@ class Engine(RequestSchedulingMixin):
         else:
             next_tok = self._contig_exec(tokens, positions,
                                          write=np.flatnonzero(active))
+        if rec is not None:
+            _dispatched(rec, span, "decode", 1)
+            span = rec.begin("engine.readback")
         next_np = next_tok.cpu().numpy()     # one device→host transfer
+        if rec is not None:
+            rec.end(span)
         produced = 0
         for st in live:
             tok = int(next_np[st.slot])
@@ -833,8 +917,10 @@ class Engine(RequestSchedulingMixin):
                     or tok == req.eos_id
                     or st.position >= self.max_seq_len - 1):
                 self._retire(st.slot, st)
-        self.steps += 1
-        self._record_step_time(time.monotonic() - t0)
+        t1 = time.monotonic()
+        self._record_step_time(t1 - t0)
+        if rec is not None:
+            rec.end(step_span, t1, {"admitted": admitted, "live": len(live)})
         return produced
 
     def _record_step_time(self, dt: float) -> None:

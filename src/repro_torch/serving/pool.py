@@ -28,6 +28,7 @@ import time
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple
 
+from repro_torch import telemetry
 from repro_torch.core.plan import Plan, ReplicaGroup
 from repro_torch.core.policy import (HookCircuitBreaker, KVCachePolicy,
                                      ReconfigPolicy, RecoveryPolicy,
@@ -191,8 +192,13 @@ class EnginePool:
     def reconfigure(self, plan: Plan) -> PoolDiff:
         """Apply a new plan; rebuild only what changed.  Measured wall-clock
         covers the in-flight hand-off (migrate/recompute/drain) and the
-        build."""
+        build.  While the recorder runs, a ``pool.reconfigure`` span holds a
+        ``pool.migrate`` span per migration and a ``pool.drain`` span per
+        drained engine, on the same stamps."""
         t0 = time.monotonic()
+        rec = telemetry.REC
+        if rec is not None:
+            span = rec.begin("pool.reconfigure", t0)
         new_groups = set(plan.groups)
         old_groups = set(self._replicas)
         removed = old_groups - new_groups
@@ -259,11 +265,16 @@ class EnginePool:
                     if mode == "migrate" and any(e.free_slots()
                                                  for e in survivors):
                         t1 = time.monotonic()
+                        if rec is not None:
+                            part = rec.begin("pool.migrate", t1, rid=st.request.rid)
                         export = eng.export_slot(slot, release=False)
                         ok = any(tgt.install_active(export) for tgt in sorted(
                             (e for e in survivors if e.free_slots()),
                             key=lambda e: e.load / max(e.n_slots, 1)))
-                        migrate_s += time.monotonic() - t1
+                        t2 = time.monotonic()
+                        migrate_s += t2 - t1
+                        if rec is not None:
+                            rec.end(part, t2)
                         if ok:
                             migrated += 1
                         elif route_continuation(export.request):
@@ -282,9 +293,14 @@ class EnginePool:
                     eng.release_exported(slot, st)
                 if eng.active:
                     t1 = time.monotonic()
+                    if rec is not None:
+                        part = rec.begin("pool.drain", t1)
                     eng.run_until_drained()
                     drained += len(self._absorb(eng))
-                    drain_s += time.monotonic() - t1
+                    t2 = time.monotonic()
+                    drain_s += t2 - t1
+                    if rec is not None:
+                        rec.end(part, t2)
                 self._retired_dispatches += eng.dispatches
                 self._absorbed.pop(id(eng), None)   # engine retires; its id
                 self._quarantined.discard(id(eng))  # may be reused by Python
@@ -301,11 +317,14 @@ class EnginePool:
 
         self.plan = plan
         self.reconfig_count += 1
+        t_end = time.monotonic()
+        if rec is not None:
+            rec.end(span, t_end)
         return PoolDiff(built=tuple(sorted(added, key=repr)),
                         reused=tuple(sorted(reused, key=repr)),
                         removed=tuple(sorted(removed, key=repr)),
                         drained_requests=drained,
-                        wall_s=time.monotonic() - t0,
+                        wall_s=t_end - t0,
                         migrated_requests=migrated,
                         recomputed_requests=recomputed,
                         migrate_wall_s=migrate_s, drain_wall_s=drain_s)

@@ -145,7 +145,6 @@ class ShadowEngine(RequestSchedulingMixin):
         self.waiting: List[Request] = []
         self.active: Dict[int, RequestState] = {}
         self.finished: List[RequestState] = []
-        self.steps = 0
         self.dispatches = 0
         # toy paged-KV prefix cache on virtual time: the REAL radix index /
         # page-pool structures (same admission + eviction semantics as the
@@ -332,7 +331,6 @@ class ShadowEngine(RequestSchedulingMixin):
             if (len(st.generated) >= st.request.max_new_tokens
                     or st.position >= self.max_seq_len - 1):
                 self._finish(st)
-        self.steps += 1
         self._record_step_time(self.t - t0)
         return produced
 
